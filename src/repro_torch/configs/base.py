@@ -1,0 +1,70 @@
+"""Configuration dataclasses: the fields of ``repro.configs.base`` that the
+dense serving path reads, kept as the port's own copy."""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class SwanConfig:
+    """SWAN KV-cache compression configuration.
+
+    ``k_max`` is the allocation-time number of retained dimensions.
+    ``k_key``/``k_value`` are the runtime active dimensions (<= k_max):
+    packed tails beyond them are zeroed.
+    """
+    enabled: bool = True
+    k_max: int = 64               # allocated retained dims per vector
+    buffer: int = 128             # dense ring-buffer length b (recent tokens)
+    mode: str = "topk"            # "topk" (paper-faithful) | "truncate"
+    quantize: bool = False        # 8-bit values (paper's 8-bit variant)
+    quant_dtype: str = "int8"     # "int8" (+ per-vector scale) | "fp8" (e4m3fn cast)
+    k_key: Optional[int] = None   # runtime active dims for keys   (None -> k_max)
+    k_value: Optional[int] = None  # runtime active dims for values (None -> k_max)
+
+    @property
+    def kk(self) -> int:
+        return self.k_max if self.k_key is None else self.k_key
+
+    @property
+    def kv(self) -> int:
+        return self.k_max if self.k_value is None else self.k_value
+
+    def validate(self, d_head: int) -> None:
+        if self.k_max > d_head:
+            raise ValueError(f"k_max={self.k_max} > d_head={d_head}")
+        if self.kk > self.k_max or self.kv > self.k_max:
+            raise ValueError("runtime k exceeds allocated k_max")
+        if self.mode not in ("topk", "truncate"):
+            raise ValueError(f"unknown winnow mode {self.mode!r}")
+        if self.quant_dtype not in ("int8", "fp8"):
+            raise ValueError(f"unknown quant dtype {self.quant_dtype!r}")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Dense decoder-only transformer of the llama kind: RMSNorm, RoPE, no
+    biases, an untied output head.  The reference's other norm, bias and
+    embedding variants belong to families the port has not reached yet."""
+    name: str
+    family: str                   # only "dense" is ported
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab_size: int
+    act: str = "silu"             # silu -> SwiGLU MLP; gelu / relu_sq -> 2-matrix MLP
+    rope_theta: float = 10000.0
+    dtype: str = "bfloat16"       # activation / cache dtype
+    param_dtype: str = "bfloat16"
+
+    @property
+    def q_group(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,229 @@
+"""SWAN hybrid KV cache: dense ring buffer + packed sparse history.
+
+Port of ``repro.core.hybrid_cache`` (slab layout).  Per attention layer:
+
+  sparse (historical, winnowed) — indexed directly by token position:
+    k_vals [B, Kv, S, k_max]   (cfg dtype, int8 or float8_e4m3fn when quantized)
+    k_idx  [B, Kv, S, k_max]   int8   (topk mode only)
+    k_scale[B, Kv, S]          f32    (int8 only)             (same for v_*)
+  buffer (recent, dense):
+    buf_k / buf_v [B, Kv, b, dh]
+    buf_pos [B, b] int32 — token position held in each ring slot (-1 = empty)
+
+Token ``t`` lives in ring slot ``t % b``.  At decode step ``pos`` the slot's
+previous occupant (token ``pos - b``) is winnowed and written to the sparse
+cache at its own position.  While ``pos < b`` the evicted slot is empty and
+the clamped write lands on row 0, which the ``sparse_len`` mask hides until a
+real eviction rewrites it — the reference's mechanics, kept bit for bit.
+
+Unlike the reference (pure functions), the inserts here update the cache
+tensors IN PLACE (functions ending in ``_``); they also return the cache.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple, Union
+
+import torch
+
+from repro_torch.core.winnow import winnow_vector
+from repro_torch.models.common import torch_dtype
+
+Params = Dict[str, Any]
+
+
+def _val_dtype(cfg, swan) -> torch.dtype:
+    if swan.quantize:
+        return torch.float8_e4m3fn if swan.quant_dtype == "fp8" else torch.int8
+    return torch_dtype(cfg.dtype)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """Bit view for float8 tensors: indexing, ``where`` and ``zeros`` on the
+    uint8 view work on every device and move the same bytes."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    if dtype == torch.float8_e4m3fn:   # +0.0 is the all-zero byte
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def init_swan_cache(cfg, swan, batch: int, max_seq: int, device,
+                    lead: Tuple[int, ...] = ()) -> Params:
+    """Allocate one layer's hybrid cache (``lead`` prepends e.g. the [L]
+    axis of the stacked serve state)."""
+    Kv, dh, b, k = cfg.n_kv_heads, cfg.d_head, swan.buffer, swan.k_max
+    vdt = _val_dtype(cfg, swan)
+    cdt = torch_dtype(cfg.dtype)
+
+    def side() -> Params:
+        d: Params = {"vals": _zeros((*lead, batch, Kv, max_seq, k), vdt,
+                                    device)}
+        if swan.mode == "topk":
+            d["idx"] = torch.zeros((*lead, batch, Kv, max_seq, k),
+                                   dtype=torch.int8, device=device)
+        if swan.quantize and swan.quant_dtype == "int8":
+            d["scale"] = torch.zeros((*lead, batch, Kv, max_seq),
+                                     dtype=torch.float32, device=device)
+        return d
+
+    return {
+        "k": side(), "v": side(),
+        "buf_k": torch.zeros((*lead, batch, Kv, b, dh), dtype=cdt,
+                             device=device),
+        "buf_v": torch.zeros((*lead, batch, Kv, b, dh), dtype=cdt,
+                             device=device),
+        "buf_pos": torch.full((*lead, batch, b), -1, dtype=torch.int32,
+                              device=device),
+    }
+
+
+def per_seq_pos(pos: Union[int, torch.Tensor], batch: int,
+                device) -> torch.Tensor:
+    """Normalise a scalar-or-[B] decode position to int32 [B] on ``device``
+    (a python int is filled on the device: no host-to-device copy)."""
+    if isinstance(pos, int):
+        return torch.full((batch,), pos, dtype=torch.int32, device=device)
+    return torch.as_tensor(pos, dtype=torch.int32,
+                           device=device).expand(batch).contiguous()
+
+
+def packed_vector_bytes(cfg, swan) -> int:
+    """Physical bytes of ONE packed sparse vector in this config's dtypes."""
+    k = swan.k_max
+    itemsize = torch_dtype(cfg.dtype).itemsize
+    per_vec = k * (1 if swan.quantize else itemsize)
+    if swan.mode == "topk":
+        per_vec += k                      # int8 indices
+    if swan.quantize and swan.quant_dtype == "int8":
+        per_vec += 4                      # f32 scale (fp8 needs none)
+    return per_vec
+
+
+def cache_bytes(cfg, swan, batch: int, max_seq: int) -> int:
+    """Physical bytes of one layer's hybrid cache (cf. paper Eq. 1)."""
+    Kv, dh, b = cfg.n_kv_heads, cfg.d_head, swan.buffer
+    sparse = 2 * batch * Kv * max_seq * packed_vector_bytes(cfg, swan)
+    buffer = 2 * batch * Kv * b * dh * torch_dtype(cfg.dtype).itemsize
+    return sparse + buffer
+
+
+def dense_cache_bytes(cfg, batch: int, max_seq: int) -> int:
+    return (2 * batch * cfg.n_kv_heads * max_seq * cfg.d_head
+            * torch_dtype(cfg.dtype).itemsize)
+
+
+# ---------------------------------------------------------------------------
+# Updates (in place)
+# ---------------------------------------------------------------------------
+
+def _write_sparse_rows_(side: Params, packed: Params, rows: slice) -> None:
+    """Write packed vectors [B, Kv, n, ...] at sparse rows ``rows``."""
+    _bits(side["vals"])[:, :, rows] = _bits(packed["vals"].to(side["vals"].dtype))
+    for name in ("idx", "scale"):
+        if name in side:
+            side[name][:, :, rows] = packed[name]
+
+
+def _write_sparse_at_(side: Params, packed: Params, row: torch.Tensor,
+                      keep: torch.Tensor) -> None:
+    """Write packed single vectors [B, Kv, 1, ...] at per-sequence rows
+    ``row`` [B].  Lanes with ``keep`` set rewrite the row's own content
+    (the reference drops their write out of range)."""
+    bi = torch.arange(row.shape[0], device=row.device)
+    r = row.long()
+    for name in ("vals", "idx", "scale"):
+        if name not in side:
+            continue
+        dst = _bits(side[name])
+        new = _bits(packed[name][:, :, 0].to(side[name].dtype))
+        cur = dst[bi, :, r]
+        k = keep.reshape(-1, *([1] * (cur.ndim - 1)))
+        dst[bi, :, r] = torch.where(k, cur, new)
+
+
+def decode_evict_winnow(cache: Params, swan, k_hat: torch.Tensor,
+                        v_hat: torch.Tensor, pos: torch.Tensor, k_act=None):
+    """Pop each sequence's ring occupant (Algorithm 1's pop-oldest), winnow
+    it, and stage the ring insert of the new token.  Reads only.
+
+    Returns ``(write_idx [B], packed_k, packed_v, ring)``: the caller writes
+    the packed vectors at ``write_idx`` and ``ring`` = (slot [B], k rows,
+    v rows [B, Kv, dh], positions [B]) into the ring.  Dead lanes
+    (``pos < 0``) stage their ring rows unchanged.  With ``b == 0`` the new
+    token itself is winnowed at ``pos`` and ``ring`` is None."""
+    B = k_hat.shape[0]
+    b = swan.buffer
+    if b == 0:   # winnow immediately, no ring
+        return (pos, winnow_vector(k_hat.transpose(1, 2), swan, "k", k_act),
+                winnow_vector(v_hat.transpose(1, 2), swan, "v", k_act), None)
+    dead = pos < 0                                                  # [B]
+    bi = torch.arange(B, device=pos.device)
+    slot = torch.remainder(pos, b).long()                           # [B]
+    old_pos = cache["buf_pos"][bi, slot]                            # [B]
+    write_idx = torch.clamp(old_pos, min=0)
+    old_k = cache["buf_k"][bi, :, slot]                             # [B,Kv,dh]
+    old_v = cache["buf_v"][bi, :, slot]
+    packed_k = winnow_vector(old_k[:, :, None], swan, "k", k_act)   # [B,Kv,1,..]
+    packed_v = winnow_vector(old_v[:, :, None], swan, "v", k_act)
+    keep = dead[:, None, None]
+    ring = (slot,
+            torch.where(keep, old_k, k_hat[:, 0].to(old_k.dtype)),
+            torch.where(keep, old_v, v_hat[:, 0].to(old_v.dtype)),
+            torch.where(dead, old_pos, pos))
+    return write_idx, packed_k, packed_v, ring
+
+
+def swan_cache_insert_decode_(cache: Params, swan, k_hat: torch.Tensor,
+                              v_hat: torch.Tensor, pos: torch.Tensor,
+                              k_act=None) -> Params:
+    """One decode step, in place: evict+winnow each ring slot's occupant,
+    insert the new rotated k̂/v̂ [B, 1, Kv, dh] at ``pos`` [B].  Dead lanes
+    (pos < 0) are no-ops."""
+    write_idx, packed_k, packed_v, ring = decode_evict_winnow(
+        cache, swan, k_hat, v_hat, pos, k_act)
+    dead = pos < 0
+    row = torch.where(dead, torch.zeros_like(write_idx), write_idx)
+    _write_sparse_at_(cache["k"], packed_k, row, dead)
+    _write_sparse_at_(cache["v"], packed_v, row, dead)
+    if ring is not None:
+        slot, rk, rv, rp = ring
+        bi = torch.arange(slot.shape[0], device=slot.device)
+        cache["buf_k"][bi, :, slot] = rk
+        cache["buf_v"][bi, :, slot] = rv
+        cache["buf_pos"][bi, slot] = rp
+    return cache
+
+
+def swan_cache_insert_prefill_(cache: Params, swan, k_hat: torch.Tensor,
+                               v_hat: torch.Tensor, k_act=None) -> Params:
+    """Bulk insert a prefill of S tokens (positions 0..S-1), in place.
+
+    Tokens [0, S-b) are winnowed into the sparse cache; the last min(S, b)
+    tokens land dense in the ring at their natural slots (t % b)."""
+    S = k_hat.shape[1]
+    b = swan.buffer
+    n_sp = max(S - b, 0) if b else S
+    kt = k_hat.transpose(1, 2)     # [B, Kv, S, dh]
+    vt = v_hat.transpose(1, 2)
+    if n_sp:
+        _write_sparse_rows_(cache["k"], winnow_vector(kt[:, :, :n_sp], swan,
+                                                      "k", k_act),
+                            slice(0, n_sp))
+        _write_sparse_rows_(cache["v"], winnow_vector(vt[:, :, :n_sp], swan,
+                                                      "v", k_act),
+                            slice(0, n_sp))
+    if b == 0:
+        return cache
+    tail = torch.arange(n_sp, S, device=k_hat.device)
+    slots = tail % b
+    cache["buf_k"][:, :, slots] = kt[:, :, n_sp:].to(cache["buf_k"].dtype)
+    cache["buf_v"][:, :, slots] = vt[:, :, n_sp:].to(cache["buf_v"].dtype)
+    cache["buf_pos"][:, slots] = tail.to(torch.int32)
+    return cache
+
+
+def sparse_len(swan, pos: torch.Tensor) -> torch.Tensor:
+    """Number of valid sparse entries at decode position ``pos`` [B]."""
+    return torch.clamp(pos + 1 - swan.buffer, min=0).to(torch.int32)

@@ -1,0 +1,88 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C interface.  At first
+use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+``<repo>/build/kernels/`` (listed in ``.gitignore``), named by a hash of the
+source, and loaded with ``ctypes``.  Nothing is built when a module is
+imported: the CPU tests import every module of the port.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Callable, Iterable, List, Optional
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+class CudaKernel:
+    """One kernel library: where its source is, how its C functions are
+    typed (``bind``), and how many times the port launched it
+    (``launches``, bumped by the wrapper at each launch and nowhere else)."""
+
+    def __init__(self, name: str, source: Path,
+                 bind: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.source = Path(source)
+        self._bind = bind
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+        self.launches = 0
+        self.ptxas_log = ""
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile unless a library of this exact source exists; returns it."""
+        out = self.library_path()
+        if out.exists():
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+               str(self.source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {self.source}:\n{res.stderr}")
+        self.ptxas_log = res.stderr
+        os.replace(tmp, out)                  # atomic: concurrent builds agree
+        return out
+
+    def lib(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                self._bind(lib)
+                self._lib = lib
+            return self._lib
+
+
+def build_all(kernels: Iterable[CudaKernel]) -> List[Path]:
+    """Build every kernel at once: one nvcc process per source, started
+    together."""
+    ks = list(kernels)
+    with ThreadPoolExecutor(max_workers=max(len(ks), 1)) as pool:
+        return list(pool.map(lambda k: k.build(), ks))

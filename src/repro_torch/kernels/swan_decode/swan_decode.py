@@ -1,0 +1,164 @@
+"""SWAN hybrid-cache decode attention: the CUDA kernel's wrapper.
+
+``swan_decode`` has the contract of the TPU kernel ``swan_decode_pallas``
+(``repro/kernels/swan_decode/swan_decode.py:196``): q [B,Kv,G,dh] attends
+over the packed sparse prefix [B,Kv,S,k] (rows ``t < sp_len``) and the
+dense ring [B,Kv,b,dh] (slots ``0 <= buf_pos <= pos``) with one softmax,
+and returns o [B,Kv,G,dh] in q's dtype.
+
+For CUDA tensors it launches ``csrc/swan_decode.cu`` (one block per
+(sequence, kv head); see the note at the top of that file) or raises; for
+CPU tensors it runs the plain twin ``swan_decode_reference``.  Arguments
+are checked the same way on both devices.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, List, Optional, Union
+
+import torch
+
+from repro_torch.core.hybrid_cache import per_seq_pos
+from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.swan_decode.ref import swan_decode_reference
+
+# the plain PyTorch version of the kernel's function
+swan_decode_plain = swan_decode_reference
+
+_Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+_V_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+            torch.float8_e4m3fn: 3}
+SUPPORTED_G = (1, 2, 4, 8)
+N_WARPS = 8                              # kWarps in the CUDA source
+SMEM_PER_BLOCK = 232448                  # bytes a block may use on sm_90
+MAX_DH = 128                             # int8 indices address dh <= 128 columns
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.swan_decode_launch.argtypes = [i, i] + [p] * 13 + [i] * 7 + [p]
+    lib.swan_decode_launch.restype = i
+    lib.swan_decode_error_string.argtypes = [i]
+    lib.swan_decode_error_string.restype = ctypes.c_char_p
+
+
+KERNEL = CudaKernel("swan_decode",
+                    Path(__file__).with_name("csrc") / "swan_decode.cu", _bind)
+
+
+def smem_bytes(G: int, dh: int, b: int) -> int:
+    """Shared memory of one block: q̂, the per-warp accumulators and
+    softmax stats, and the ring's scores (mirrors ``smem_bytes`` in the
+    CUDA source)."""
+    return 4 * (G * dh + N_WARPS * G * dh + 2 * N_WARPS * G + G + G * b)
+
+
+def precheck(*, G: int, dh: int, k_max: int, b: int) -> Dict[str, object]:
+    """Static launch validation (the port of the TPU kernel's ``precheck``,
+    budgeted against a Hopper block's shared memory).  Returns
+    ``{"errors": [...], "smem_bytes": int}``."""
+    errors: List[str] = []
+    if not 1 <= k_max <= dh:
+        errors.append(f"k_max={k_max} must lie in [1, dh={dh}]")
+    if dh > MAX_DH:
+        errors.append(f"dh={dh} > {MAX_DH}: int8 indices cannot address it")
+    if G not in SUPPORTED_G:
+        errors.append(f"query group G={G} not in {SUPPORTED_G}")
+    if b < 1:
+        errors.append("empty ring (b=0): the kernel needs b >= 1")
+    smem = smem_bytes(G, dh, b)
+    if smem > SMEM_PER_BLOCK:
+        errors.append(f"shared memory {smem} B exceeds {SMEM_PER_BLOCK} B "
+                      f"(G={G}, dh={dh}, b={b})")
+    return {"errors": errors, "smem_bytes": smem}
+
+
+def _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
+           sp_len, k_scale, v_scale) -> None:
+    B, Kv, G, dh = q.shape
+    if k_vals.dim() != 4 or k_vals.shape[:2] != (B, Kv):
+        raise ValueError(f"k_vals {tuple(k_vals.shape)} is not [B,Kv,S,k] "
+                         f"for q {tuple(q.shape)}")
+    S, k = k_vals.shape[2], k_vals.shape[3]
+    b = buf_k.shape[2] if buf_k.dim() == 4 else -1
+    shapes = {"k_idx": (k_idx, (B, Kv, S, k)), "v_vals": (v_vals, (B, Kv, S, k)),
+              "v_idx": (v_idx, (B, Kv, S, k)), "buf_k": (buf_k, (B, Kv, b, dh)),
+              "buf_v": (buf_v, (B, Kv, b, dh)), "buf_pos": (buf_pos, (B, b)),
+              "pos": (pos, (B,)), "sp_len": (sp_len, (B,))}
+    if k_scale is not None or v_scale is not None:
+        shapes["k_scale"] = (k_scale, (B, Kv, S))
+        shapes["v_scale"] = (v_scale, (B, Kv, S))
+    for name, (t, want) in shapes.items():
+        if t is None or tuple(t.shape) != want:
+            got = None if t is None else tuple(t.shape)
+            raise ValueError(f"{name}: shape {got}, expected {want}")
+    if q.dtype not in _Q_TYPES:
+        raise TypeError(f"q dtype {q.dtype} not in {list(_Q_TYPES)}")
+    if buf_k.dtype != q.dtype or buf_v.dtype != q.dtype:
+        raise TypeError("buf_k/buf_v must have q's dtype")
+    if k_vals.dtype != v_vals.dtype or k_vals.dtype not in _V_TYPES:
+        raise TypeError(f"k/v_vals dtype {k_vals.dtype}/{v_vals.dtype} not "
+                        f"one of {list(_V_TYPES)}")
+    if k_vals.dtype not in (q.dtype, torch.int8, torch.float8_e4m3fn):
+        raise TypeError(f"vals dtype {k_vals.dtype} must be q's dtype, int8 "
+                        "or float8_e4m3fn")
+    if (k_vals.dtype == torch.int8) != (k_scale is not None):
+        raise TypeError("int8 values need k_scale/v_scale, and only they do")
+    if k_scale is not None and (k_scale.dtype != torch.float32
+                                or v_scale.dtype != torch.float32):
+        raise TypeError("k_scale/v_scale must be float32")
+    if k_idx.dtype != torch.int8 or v_idx.dtype != torch.int8:
+        raise TypeError("k_idx/v_idx must be int8")
+    if buf_pos.dtype != torch.int32:
+        raise TypeError("buf_pos must be int32")
+    tensors = [q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
+               sp_len] + [t for t in (k_scale, v_scale) if t is not None]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all operands must be on q's device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("all operands must be contiguous")
+    errs = precheck(G=G, dh=dh, k_max=k, b=b)["errors"]
+    if errs:
+        raise ValueError("; ".join(errs))
+
+
+def swan_decode(q: torch.Tensor, k_vals: torch.Tensor, k_idx: torch.Tensor,
+                v_vals: torch.Tensor, v_idx: torch.Tensor, buf_k: torch.Tensor,
+                buf_v: torch.Tensor, buf_pos: torch.Tensor,
+                pos: Union[int, torch.Tensor], sp_len: Union[int, torch.Tensor],
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode attention over [packed sparse ‖ ring]; ``pos``/``sp_len`` are
+    scalars or per-sequence [B].  Launches the kernel for CUDA tensors,
+    runs the plain twin for CPU tensors."""
+    B = q.shape[0]
+    pos = per_seq_pos(pos, B, q.device)
+    sp_len = per_seq_pos(sp_len, B, q.device)
+    _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
+           sp_len, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return swan_decode_plain(q, k_vals, k_idx, v_vals, v_idx, buf_k,
+                                 buf_v, buf_pos, pos, sp_len, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _, Kv, G, dh = q.shape
+    S, k = k_vals.shape[2], k_vals.shape[3]
+    out = torch.empty_like(q)
+    lib = KERNEL.lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.swan_decode_launch(
+            _Q_TYPES[q.dtype], _V_TYPES[k_vals.dtype], q.data_ptr(),
+            k_vals.data_ptr(), k_idx.data_ptr(), v_vals.data_ptr(),
+            v_idx.data_ptr(),
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
+            buf_k.data_ptr(), buf_v.data_ptr(), buf_pos.data_ptr(),
+            pos.data_ptr(), sp_len.data_ptr(), out.data_ptr(),
+            B, Kv, G, dh, S, k, buf_k.shape[2], stream)
+    if err != 0:
+        raise RuntimeError("swan_decode launch failed: "
+                           + lib.swan_decode_error_string(err).decode())
+    KERNEL.launches += 1
+    return out

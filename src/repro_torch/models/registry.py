@@ -1,0 +1,47 @@
+"""Model API of the port (the ``dense`` entry of ``repro.models.registry``)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from repro_torch.models import transformer as tfm
+
+
+@dataclass(frozen=True)
+class ModelApi:
+    init_params: Callable        # (cfg, seed, device) -> params
+    forward: Callable            # (p, cfg, batch) -> logits
+    init_serve_state: Callable   # (cfg, swan, batch, max_seq, device) -> state
+    prefill: Callable            # (p, cfg, batch, state, swan, proj) -> (logits, state)
+    decode_step: Callable        # (p, cfg, token, pos, state, swan, proj) -> (logits, state)
+    collect_qkv: Callable        # (p, cfg, batch) -> (q, k, v, wo)
+    absorb: Callable             # (p, cfg, projections) -> params
+
+
+def _forward(p, cfg, batch):
+    return tfm.lm_forward(p, cfg, batch["tokens"])
+
+
+def _prefill(p, cfg, batch, state, swan=None, proj=None):
+    return tfm.lm_prefill(p, cfg, batch["tokens"], state, swan, proj)
+
+
+def _collect(p, cfg, batch):
+    return tfm.collect_qkv(p, cfg, batch["tokens"])
+
+
+_FAMILIES = {
+    "dense": ModelApi(tfm.init_lm_params, _forward, tfm.init_caches, _prefill,
+                      tfm.lm_decode_step, _collect, tfm.absorb_swan),
+}
+
+
+def get_model(cfg) -> ModelApi:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
+                                  f"the port has {list(_FAMILIES)}")
+    return _FAMILIES[cfg.family]
+
+
+def swan_applicable(cfg) -> bool:
+    return cfg.family in _FAMILIES

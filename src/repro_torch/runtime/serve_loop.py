@@ -1,0 +1,114 @@
+"""Lockstep serving: SWAN calibration and a batched generation session.
+
+Port of ``repro.runtime.serve_loop`` (without metrics).  The session's
+caches live on its device and prefill/decode update them in place.  On the
+card every layer's SWAN decode read goes through the CUDA kernel
+(``repro_torch.kernels.swan_decode``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core import projections as proj_mod
+from repro_torch.core.analytical import model_cache_footprint
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.registry import get_model, swan_applicable
+from repro_torch.runtime.sampling import sample_token
+
+Params = Dict[str, Any]
+
+
+def calibrate_swan(api, cfg, params, calib_batch) -> Params:
+    """Offline calibration (§4.1): capture activations, joint SVD."""
+    q, k, v, wo = api.collect_qkv(params, cfg, calib_batch)
+    return proj_mod.compute_projections((q, k, v), wo, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.d_head)
+
+
+class _DenseLike:
+    def __init__(self, d_head):
+        self.k_max = d_head
+        self.buffer = 0
+        self.quantize = False
+
+
+def serve_cache_report(cfg, swan, batch: int, max_seq: int) -> Dict[str, Any]:
+    """Physical cache accounting (paper Eq. 1); ``swan`` None -> dense."""
+    if swan is None:
+        fp = model_cache_footprint(cfg, _DenseLike(cfg.d_head), batch, max_seq)
+        return {"mode": "dense", "bytes": fp.dense_bytes}
+    fp = model_cache_footprint(cfg, swan, batch, max_seq)
+    return {"mode": f"swan[{swan.mode}]", "bytes": fp.swan_bytes,
+            "dense_bytes": fp.dense_bytes, "saving": fp.saving}
+
+
+class ServeSession:
+    """Batched autoregressive generation with an optional SWAN cache.
+
+    ``device`` None means the card: constructing a session without a card
+    and without ``device="cpu"`` raises.  ``params`` must already live on
+    that device."""
+
+    def __init__(self, cfg, params, swan=None, projections=None,
+                 max_seq: int = 4096, batch: int = 1,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.api = get_model(cfg)
+        self.swan = (swan if (swan and swan.enabled and swan_applicable(cfg))
+                     else None)
+        self.projections = projections
+        self.max_seq = max_seq
+        self.batch = batch
+        if self.swan is not None:
+            self.swan.validate(cfg.d_head)
+            if projections is None:
+                raise ValueError("SWAN enabled but no projections given — "
+                                 "run calibrate_swan first")
+        self.params = params
+        self.state = self.api.init_serve_state(cfg, self.swan, batch, max_seq,
+                                               self.device)
+        self.pos = 0
+
+    def prefill(self, batch_in: Params) -> torch.Tensor:
+        tokens = batch_in["tokens"]
+        if tokens.shape[1] > self.max_seq:
+            raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds "
+                             f"max_seq={self.max_seq}")
+        logits, self.state = self.api.prefill(self.params, self.cfg, batch_in,
+                                              self.state, self.swan,
+                                              self.projections)
+        self.pos = tokens.shape[1]
+        return logits[:, -1]
+
+    def decode(self, token: torch.Tensor) -> torch.Tensor:
+        if self.pos >= self.max_seq:
+            raise ValueError(f"position {self.pos} is past max_seq="
+                             f"{self.max_seq}")
+        logits, self.state = self.api.decode_step(
+            self.params, self.cfg, token, self.pos, self.state, self.swan,
+            self.projections)
+        self.pos += 1
+        return logits
+
+    def generate(self, batch_in: Params, n_tokens: int,
+                 temperature: float = 0.0, seed: int = 0) -> torch.Tensor:
+        """Greedy (or sampled) generation; returns [B, n_tokens] int64."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        logits = self.prefill(batch_in)
+        tok = sample_token(logits, temperature, gen)
+        outs = []
+        for i in range(n_tokens):
+            outs.append(tok)
+            if i == n_tokens - 1:
+                break
+            logits = self.decode(tok)
+            tok = sample_token(logits, temperature, gen)
+        return torch.stack(outs, dim=1)
+
+    def cache_report(self) -> Dict[str, Any]:
+        """Physical cache accounting (paper Eq. 1 applied to this model)."""
+        return serve_cache_report(self.cfg, self.swan, self.batch,
+                                  self.max_seq)

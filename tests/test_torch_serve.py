@@ -1,0 +1,133 @@
+"""The port's lockstep serving against the JAX ``ServeSession`` on the
+float32 llama3-8b smoke config: the reference's weights, absorbed weights
+and projections carried across, greedy tokens identical at k = d_head/2
+and at full retention; the port's own calibration lossless at full
+retention; and the port's isolation from JAX and its device contract."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import SwanConfig as JSwan  # noqa: E402
+from repro.configs import get_smoke_config as j_smoke  # noqa: E402
+from repro.launch.io import make_batch as j_make_batch  # noqa: E402
+from repro.models import get_model as j_get_model  # noqa: E402
+from repro.runtime.serve_loop import ServeSession as JSession  # noqa: E402
+from repro.runtime.serve_loop import calibrate_swan as j_calibrate  # noqa: E402
+from repro_torch.configs import SwanConfig, get_smoke_config  # noqa: E402
+from repro_torch.convert import to_torch  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch.io import make_batch  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.runtime.serve_loop import ServeSession, calibrate_swan  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's quickstart pipeline at f32, and its tensors in torch."""
+    jcfg = j_smoke("llama3-8b").replace(dtype="float32", param_dtype="float32")
+    tcfg = get_smoke_config("llama3-8b").replace(dtype="float32",
+                                                 param_dtype="float32")
+    japi = j_get_model(jcfg)
+    params = japi.init_params(jax.random.PRNGKey(0), jcfg)
+    pj = j_calibrate(japi, jcfg, params, j_make_batch(jcfg, 2, 24, seed=3))
+    absorbed = japi.absorb(params, jcfg, pj)
+    t = {n: to_torch(x, device="cpu") for n, x in
+         (("params", params), ("absorbed", absorbed), ("pj", pj))}
+    return jcfg, tcfg, params, absorbed, pj, t
+
+
+@pytest.mark.parametrize("k_frac", ["half", "full"])
+def test_greedy_tokens_match_reference_session(ref, k_frac):
+    jcfg, tcfg, _, absorbed, pj, t = ref
+    k = jcfg.d_head // 2 if k_frac == "half" else jcfg.d_head
+    jsess = JSession(jcfg, absorbed, swan=JSwan(k_max=k, buffer=8), projections=pj,
+                     max_seq=64, batch=2)
+    tsess = ServeSession(tcfg, t["absorbed"], swan=SwanConfig(k_max=k, buffer=8),
+                         projections=t["pj"], max_seq=64, batch=2, device="cpu")
+    j_out = jsess.generate(j_make_batch(jcfg, 2, 16, seed=1), 14)
+    t_out = tsess.generate(make_batch(tcfg, 2, 16, seed=1, device="cpu"), 14)
+    np.testing.assert_array_equal(np.asarray(j_out), t_out.numpy())
+    assert tsess.cache_report() == jsess.cache_report()
+
+
+def test_dense_session_matches_reference(ref):
+    jcfg, tcfg, params, _, _, t = ref
+    j_out = JSession(jcfg, params, max_seq=64, batch=2).generate(
+        j_make_batch(jcfg, 2, 12, seed=2), 10)
+    t_out = ServeSession(tcfg, t["params"], max_seq=64, batch=2,
+                         device="cpu").generate(
+        make_batch(tcfg, 2, 12, seed=2, device="cpu"), 10)
+    np.testing.assert_array_equal(np.asarray(j_out), t_out.numpy())
+
+
+def test_own_calibration_full_retention_matches_dense(ref):
+    _, tcfg, _, _, _, t = ref
+    api = get_model(tcfg)
+    params = api.init_params(tcfg, 7, "cpu")
+    pj = calibrate_swan(api, tcfg, params,
+                        make_batch(tcfg, 2, 24, seed=3, device="cpu"))
+    swan = SwanConfig(k_max=tcfg.d_head, buffer=8)
+    dense = ServeSession(tcfg, params, max_seq=64, batch=2, device="cpu")
+    full = ServeSession(tcfg, api.absorb(params, tcfg, pj), swan=swan,
+                        projections=pj, max_seq=64, batch=2, device="cpu")
+    prompt = make_batch(tcfg, 2, 20, seed=4, device="cpu")
+    ld, ls = dense.prefill(prompt), full.prefill(prompt)
+    for _ in range(8):                  # decode well past the ring (b=8)
+        np.testing.assert_allclose(ls.numpy(), ld.numpy(), atol=5e-5)
+        tok = torch.argmax(ld, dim=-1)
+        ld, ls = dense.decode(tok), full.decode(tok)
+    np.testing.assert_allclose(ls.numpy(), ld.numpy(), atol=5e-5)
+
+
+def test_session_defaults_to_the_card(ref):
+    _, tcfg, _, _, _, t = ref
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeSession(tcfg, t["params"], max_seq=32, batch=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batch(tcfg, 1, 4)
+
+
+def test_launcher_runs_on_cpu(capsys):
+    serve_cli.main(["--arch", "llama3-8b", "--smoke", "--swan", "--k", "8",
+                    "--buffer", "8", "--tokens", "4", "--batch", "2",
+                    "--prompt-len", "12", "--max-seq", "64", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "seq 0:" in out and "cache [swan[topk]]" in out
+
+
+def test_port_runs_without_jax_or_the_reference():
+    code = (
+        "import sys\n"
+        "from repro_torch.configs import SwanConfig, get_smoke_config\n"
+        "from repro_torch.launch.io import make_batch\n"
+        "from repro_torch.models.registry import get_model\n"
+        "from repro_torch.runtime.serve_loop import ServeSession, calibrate_swan\n"
+        "import repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels\n"
+        "cfg = get_smoke_config('llama3-8b')\n"
+        "api = get_model(cfg)\n"
+        "p = api.init_params(cfg, 0, 'cpu')\n"
+        "pj = calibrate_swan(api, cfg, p, make_batch(cfg, 2, 16, device='cpu'))\n"
+        "s = ServeSession(cfg, api.absorb(p, cfg, pj), swan=SwanConfig(k_max=8,"
+        " buffer=4), projections=pj, max_seq=32, batch=2, device='cpu')\n"
+        "out = s.generate(make_batch(cfg, 2, 8, device='cpu'), 4)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(tuple(out.shape))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(SRC)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "(2, 4)"

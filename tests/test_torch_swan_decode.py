@@ -1,0 +1,155 @@
+"""Port parity for the SWAN decode read (kernel B1): the kernel wrapper's
+plain twin and the port's gather/scatter path against the JAX oracle
+``swan_decode_reference`` and the Pallas kernel in interpret mode, on the
+same numpy inputs.  Tolerances follow tests/test_kernels.py: 5e-5 where
+the arithmetic is float32 (f32, int8+scale and fp8 values with f32 q), 5e-2
+where it is bfloat16 — which includes the pure paths over fp8 values: they
+widen fp8 to bf16 and gather q̂ in that dtype (the reference does the
+same, so port and reference pure paths still agree at 5e-5)."""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import SwanConfig as JSwan  # noqa: E402
+from repro.core.swan_attention import swan_decode_attention as j_attention  # noqa: E402
+from repro.kernels.swan_decode.ref import swan_decode_reference as j_reference  # noqa: E402
+from repro.kernels.swan_decode.swan_decode import swan_decode_pallas  # noqa: E402
+from repro_torch.configs import SwanConfig  # noqa: E402
+from repro_torch.convert import to_torch  # noqa: E402
+from repro_torch.core.swan_attention import swan_decode_attention  # noqa: E402
+from repro_torch.kernels.swan_decode.swan_decode import (  # noqa: E402
+    KERNEL, precheck, swan_decode)
+
+B, KV, G, DH, S, K, BUF, BS = 2, 2, 2, 16, 32, 8, 8, 16
+
+# value storage -> (q/ring dtype, oracle tolerance, pure-path tolerance)
+VALS = {
+    "f32": (np.float32, 5e-5, 5e-5),
+    "bf16": (ml_dtypes.bfloat16, 5e-2, 5e-2),
+    "int8": (np.float32, 5e-5, 5e-5),
+    "fp8": (np.float32, 5e-5, 5e-2),
+}
+# decode positions per sequence: ring wrapped with staggered positions, an
+# empty sparse prefix with a partly filled ring, a full-length prefix
+CASES = {
+    "wrap": [S + BUF - 4, 20],
+    "empty_prefix": [5, 2],
+    "full_prefix": [S + BUF - 1, S + BUF - 1],
+}
+
+
+def _inputs(vals_kind: str, case: str, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    qdt = VALS[vals_kind][0]
+    pos = np.asarray(CASES[case], np.int32)
+    sp_len = np.maximum(pos + 1 - BUF, 0).astype(np.int32)
+    buf_pos = np.full((B, BUF), -1, np.int32)
+    for bi, p in enumerate(pos):
+        for t in range(max(p - BUF + 1, 0), p + 1):
+            buf_pos[bi, t % BUF] = t
+    idx = lambda: np.stack([rng.permutation(DH)[:K] for _ in range(B * KV * S)]
+                           ).reshape(B, KV, S, K).astype(np.int8)
+    a = {"q": rng.standard_normal((B, KV, G, DH)).astype(qdt),
+         "k_idx": idx(), "v_idx": idx(),
+         "buf_k": rng.standard_normal((B, KV, BUF, DH)).astype(qdt),
+         "buf_v": rng.standard_normal((B, KV, BUF, DH)).astype(qdt),
+         "buf_pos": buf_pos, "pos": pos, "sp_len": sp_len}
+    if vals_kind == "int8":
+        for s in "kv":
+            a[f"{s}_vals"] = rng.integers(-127, 128, (B, KV, S, K)).astype(np.int8)
+            a[f"{s}_scale"] = (rng.random((B, KV, S)) * 0.1 + 0.01).astype(np.float32)
+    else:
+        vdt = ml_dtypes.float8_e4m3fn if vals_kind == "fp8" else qdt
+        for s in "kv":
+            a[f"{s}_vals"] = rng.standard_normal((B, KV, S, K)).astype(vdt)
+    return a
+
+
+ARGS = ("q", "k_vals", "k_idx", "v_vals", "v_idx", "buf_k", "buf_v",
+        "buf_pos", "pos", "sp_len")
+
+
+def _jax_outputs(a):
+    j = {n: jnp.asarray(v) for n, v in a.items()}
+    args = [j[n] for n in ARGS]
+    kw = {"k_scale": j.get("k_scale"), "v_scale": j.get("v_scale")}
+    ref = j_reference(*args, **kw)
+    pal = swan_decode_pallas(*args, **kw, block_s=BS, interpret=True)
+    return (np.asarray(ref, np.float32), np.asarray(pal, np.float32))
+
+
+def _cache(a, conv):
+    """One layer's hybrid-cache dict over the inputs, leaves through conv."""
+    cache = {n: conv(a[n]) for n in ("buf_k", "buf_v", "buf_pos")}
+    for s in "kv":
+        cache[s] = {n: conv(a[f"{s}_{n}"]) for n in ("vals", "idx", "scale")
+                    if f"{s}_{n}" in a}
+    return cache
+
+
+def _swan(kind, cls):
+    return cls(k_max=K, buffer=BUF, quantize=kind in ("int8", "fp8"),
+               quant_dtype="fp8" if kind == "fp8" else "int8")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("vals_kind", list(VALS))
+def test_plain_twin_and_pure_path_match_jax(vals_kind, case):
+    a = _inputs(vals_kind, case)
+    _, tol, pure_tol = VALS[vals_kind]
+    ref, pal = _jax_outputs(a)
+    np.testing.assert_allclose(pal, ref, atol=tol)      # the oracles agree
+
+    t = to_torch(a, device="cpu")
+    launches = KERNEL.launches
+    twin = swan_decode(*[t[n] for n in ARGS], k_scale=t.get("k_scale"),
+                       v_scale=t.get("v_scale"))
+    assert KERNEL.launches == launches           # CPU tensors never launch
+    assert twin.dtype == t["q"].dtype and twin.shape == (B, KV, G, DH)
+    pure = swan_decode_attention(t["q"], _cache(t, lambda x: x),
+                                 _swan(vals_kind, SwanConfig), t["pos"])
+    for got, atol in ((twin, tol), (pure, pure_tol)):
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, ref, atol=atol)
+        np.testing.assert_allclose(got, pal, atol=atol)
+    # the port's pure path and the reference's pure path on one cache
+    j_pure = j_attention(jnp.asarray(a["q"]), _cache(a, jnp.asarray),
+                         _swan(vals_kind, JSwan), None, jnp.asarray(a["pos"]))
+    np.testing.assert_allclose(pure.float().numpy(),
+                               np.asarray(j_pure, np.float32), atol=tol)
+
+
+def _good():
+    return to_torch(_inputs("bf16", "wrap"), device="cpu")
+
+
+@pytest.mark.parametrize("mutate, err", [
+    (lambda t: t.update(q=t["q"].half()), TypeError),
+    (lambda t: t.update(k_vals=t["k_vals"].float(), v_vals=t["v_vals"].float()),
+     TypeError),
+    (lambda t: t.update(k_idx=t["k_idx"].long()), TypeError),
+    (lambda t: t.update(buf_pos=t["buf_pos"][:, :-1]), ValueError),
+    (lambda t: t.update(k_vals=t["k_vals"][..., :-1]), ValueError),
+    (lambda t: t.update(buf_k=t["buf_k"].transpose(2, 3).contiguous()
+                        .transpose(2, 3)), ValueError),
+    (lambda t: t.update(k_vals=t["k_vals"].to(torch.int8),
+                        v_vals=t["v_vals"].to(torch.int8)), TypeError),
+])
+def test_wrapper_rejects_bad_operands(mutate, err):
+    t = _good()
+    mutate(t)
+    with pytest.raises(err):
+        swan_decode(*[t[n] for n in ARGS], k_scale=t.get("k_scale"),
+                    v_scale=t.get("v_scale"))
+
+
+def test_precheck_budget():
+    ok = precheck(G=4, dh=128, k_max=64, b=128)
+    assert not ok["errors"] and ok["smem_bytes"] < 48 * 1024
+    assert precheck(G=3, dh=128, k_max=64, b=128)["errors"]
+    assert precheck(G=4, dh=256, k_max=64, b=128)["errors"]
+    assert precheck(G=4, dh=64, k_max=65, b=128)["errors"]
+    assert precheck(G=8, dh=128, k_max=64, b=8192)["errors"]   # > 227 KB
