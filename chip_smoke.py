@@ -8,10 +8,12 @@ Phases, each of which must pass (any failure exits non-zero):
 1. device   — the card's name and power limit (nvidia-smi) and torch's name.
 2. build    — every CUDA kernel of the port, built from the sources in this
               checkout (one nvcc per source, all started together).
-3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the shapes the serve path gives it, for every value type it
-              takes; its median time beside the plain version's, a one-call
-              PyTorch yardstick (``library_ms``) and the byte bound.
+3. kernels  — each kernel (slab and paged decode, slab and paged chunk
+              stats) against its plain PyTorch version on the card, at the
+              shapes the serve path gives it, for every value type it
+              takes; paged == slab bit for bit; its median time beside the
+              plain version's, a one-call PyTorch yardstick
+              (``library_ms``) and the bound.
 4. serve    — full-width llama3-8b (bf16, seeded random weights) served
               through the lockstep SWAN path: calibrate, absorb,
               ``ServeSession.generate``.  The kernel launch counts are zeroed
@@ -19,9 +21,16 @@ Phases, each of which must pass (any failure exits non-zero):
 5. exact    — 4 layers at full width, SWAN at full retention (k = d_head)
               against the dense-cache session: the decode logits must agree
               (Lemmas A.1/A.2), with the decode kernel on the path.
+6. engine   — the same model through ``ServeEngine`` with chunked
+              concurrent prefill, on the slab and then on the paged pool:
+              identical tokens, 32 launches of each layout's kernels per
+              dispatch (counts zeroed before each run, read after).
+7. chunk_exact — 4 layers at full retention: a prompt prefilled in two
+              chunks (slab, paged) against the dense monolithic prefill.
 
 The last three lines are nvidia-smi's name and power limit of the card,
-one JSON object of kernel numbers, and the result line
+one JSON object of kernel numbers (``launches`` summed over the main paths
+that ran the kernel, ``launches_by_path`` per path), and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -39,6 +48,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 L2_FLUSH_BYTES = 256 << 20       # > the 50 MB L2: each timed launch starts cold
 
 # the serve phase's shapes (llama3-8b, SwanConfig(k_max=64, buffer=128))
@@ -138,6 +148,15 @@ def decode_bytes_flops(a):
     return rows * per_row + ring + qo + 8 * B, flops
 
 
+def dense_expand(vals, idx, scale):
+    """Dense f32 [..., rows, DH] form of packed values (times the per-row
+    scale where there is one), for the SDPA yardsticks."""
+    import torch
+    v = vals.float() if scale is None else vals.float() * scale[..., None]
+    out = torch.zeros(tuple(idx.shape[:-1]) + (DH,), device=idx.device)
+    return out.scatter_(-1, idx.long(), v)
+
+
 def sdpa_yardstick(a):
     """The same function as one scaled_dot_product_attention call over the
     dense-expanded [sparse ‖ ring] keys/values (expansion done here, outside
@@ -145,13 +164,8 @@ def sdpa_yardstick(a):
     import torch
     import torch.nn.functional as F
 
-    def dense(vals, idx, scale):
-        v = vals.float() if scale is None else vals.float() * scale[..., None]
-        out = torch.zeros((B, KV, S, DH), device="cuda")
-        return out.scatter_(-1, idx.long(), v)
-
-    kd = dense(a["k_vals"], a["k_idx"], a.get("k_scale"))
-    vd = dense(a["v_vals"], a["v_idx"], a.get("v_scale"))
+    kd = dense_expand(a["k_vals"], a["k_idx"], a.get("k_scale"))
+    vd = dense_expand(a["v_vals"], a["v_idx"], a.get("v_scale"))
     qdt = a["q"].dtype
     k_all = torch.cat([kd, a["buf_k"].float()], 2).to(qdt)
     v_all = torch.cat([vd, a["buf_v"].float()], 2).to(qdt)
@@ -218,15 +232,255 @@ def kernel_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (cont.): swan_decode_paged, swan_chunk_stats(_paged)
+# ---------------------------------------------------------------------------
+
+PS, PG = 64, S // 64             # the engine's page size, pages per sequence
+N_PAGES = -(-(B * PG + 1) // 8) * 8      # the engine's default pool (+ trash)
+
+
+def garbage_like(shape, dtype, gen):
+    """Random content for pool pages no sequence maps (the trash page and
+    free pages): a kernel that reads them produces visible errors."""
+    import torch
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda"
+                             ).to(torch.int8)
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def page_out(a, sp, gen, names, lanes, pg=PG, n_pages=N_PAGES):
+    """Copy each lane's first ceil(sp / PS) logical pages of the slab
+    leaves ``a[name]`` [lanes, KV, pg*PS, ...] into shuffled physical pages
+    of a pool full of garbage.  Returns (pool leaves, page table [lanes,
+    pg] int32 with every unmapped entry on trash page 0)."""
+    import torch
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(7)) + 1
+    tab = torch.zeros((lanes, pg), dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(sp):
+        m = -(-n // PS)
+        tab[i, :m] = perm[used:used + m]
+        used += m
+    pool = {}
+    for n in names:
+        x = a[n]
+        tail = tuple(x.shape[3:])
+        bits = lambda t: t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+        shape = (n_pages, KV, PS) + tail
+        pool[n] = (torch.randint(0, DH, shape, generator=gen, device="cuda"
+                                 ).to(torch.int8) if n.endswith("idx")
+                   else garbage_like(shape, x.dtype, gen))
+        for i, spn in enumerate(sp):
+            m = -(-spn // PS)
+            if m:
+                rows = x[i, :, :m * PS].reshape(KV, m, PS, *tail).transpose(0, 1)
+                bits(pool[n])[tab[i, :m].long().cuda()] = bits(rows)
+    return pool, tab.cuda()
+
+
+def timed_rows(label, fn, plain_fn, lib_fn, nbytes, flops, flush):
+    """Median kernel, plain and library times (ms) and the bound."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    ms = time_ms(fn, 30, flush)
+    plain_ms = time_ms(plain_fn, 5, flush)
+    lib_ms = time_ms(lib_fn, 10, flush)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms (expansion excluded), bound {bound:.4f} ms by {by} "
+        f"({nbytes} B, {flops:.3e} op; {100 * bound / ms:.2f}% of bound)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def paged_decode_phase():
+    """B2 against its plain twin and, bit for bit, against B1 on the same
+    logical rows; then its time at the serve shape."""
+    import torch
+    from repro_torch.kernels.swan_decode.swan_decode import (
+        swan_decode, swan_decode_paged, swan_decode_paged_plain)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tol = {"bf16": 1e-2, "int8": 1e-2, "fp8": 1e-2}
+    names = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
+    sp_cases = {"sp_len 0 / mid-page / full / 1983": [0, 1000, S, 1983],
+                "serve shape, sp_len 1983": [1983] * B}
+    max_err, rows = {}, {}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for kind in ("bf16", "int8", "fp8"):
+        for case, sp in sp_cases.items():
+            pos = [n + BUF - 1 if n else 60 for n in sp]
+            a = decode_inputs(kind, pos, gen)
+            pool, tab = page_out(a, sp, gen, [n for n in names if n in a], B)
+            pargs = ([a["q"], pool["k_vals"], pool["k_idx"], pool["v_vals"],
+                      pool["v_idx"]] + [a[n] for n in ARGS[5:]] + [tab])
+            pkw = {"pool_k_scale": pool.get("k_scale"),
+                   "pool_v_scale": pool.get("v_scale")}
+            got = swan_decode_paged(*pargs, **pkw)
+            want = swan_decode_paged_plain(*pargs, **pkw).float()
+            slab = call(swan_decode, a)
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs()
+            same = torch.equal(got, slab)
+            log(f"  swan_decode_paged[{kind:4s}] {case}: max_abs_err "
+                f"{err.max().item():.3e} (tol {tol[kind]:g} abs+rel); "
+                f"== swan_decode bit for bit: {same}")
+            check(bool(torch.isfinite(got).all())
+                  and not bool((err > tol[kind] * (1 + want.abs())).any()),
+                  f"swan_decode_paged[{kind}] {case}: kernel disagrees with plain")
+            check(same, f"swan_decode_paged[{kind}] {case}: != swan_decode")
+            max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
+            if kind == "bf16" and case.startswith("serve"):
+                nbytes, flops = decode_bytes_flops(a)
+                nbytes += tab.numel() * 4
+                lib_fn, _ = sdpa_yardstick(a)
+                rows = timed_rows(
+                    "swan_decode_paged[bf16] serve shape (sp_len 1983)",
+                    lambda: swan_decode_paged(*pargs, **pkw),
+                    lambda: swan_decode_paged_plain(*pargs, **pkw), lib_fn,
+                    nbytes, flops, flush)
+    del flush
+    return max_err, rows
+
+
+# the chunk phase's shapes: P lanes of one full chunk (256 tokens x G) over
+# a slab prefix bucket of CS rows (CPG pages)
+P_CHUNK, Q_CHUNK, CS = 2, 256 * G, 2048
+CPG = CS // PS
+
+
+def chunk_inputs(kind, sp, gen):
+    """Operands of one chunk-stats read: f32 q [P, KV, Q, DH], packed slab
+    [P, KV, CS, K] (+ scales), sp_len [P]."""
+    import torch
+    dev = "cuda"
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    idx = lambda: torch.rand((P_CHUNK, KV, CS, DH), generator=gen, device=dev
+                             ).argsort(-1)[..., :K].to(torch.int8)
+    a = {"q": rnd(P_CHUNK, KV, Q_CHUNK, DH), "k_idx": idx(), "v_idx": idx(),
+         "sp_len": torch.tensor(sp, dtype=torch.int32, device=dev)}
+    vdt = {"bf16": torch.bfloat16, "f32": torch.float32,
+           "fp8": torch.float8_e4m3fn, "int8": torch.int8}[kind]
+    for s_ in "kv":
+        a[f"{s_}_vals"] = garbage_like((P_CHUNK, KV, CS, K), vdt, gen)
+        if kind == "int8":
+            a[f"{s_}_scale"] = rnd(P_CHUNK, KV, CS).abs() * 0.05 + 0.01
+    return a
+
+
+def chunk_bytes_flops(a):
+    """Bytes (valid packed rows of both sides, q, sp_len, the three outputs)
+    and operations of one chunk-stats read: a sparse product, so 4·Q·k per
+    valid row and kv head (q·k over the k stored entries, p·v into them)."""
+    rows = int(a["sp_len"].sum()) * KV
+    per_row = 2 * K * (a["k_vals"].element_size() + 1)
+    if "k_scale" in a:
+        per_row += 2 * 4
+    q_b = a["q"].numel() * 4
+    out_b = P_CHUNK * KV * Q_CHUNK * (2 + DH) * 4
+    flops = 4 * Q_CHUNK * K * rows
+    return rows * per_row + q_b + out_b + 4 * P_CHUNK, flops
+
+
+def chunk_sdpa_yardstick(a):
+    """One scaled_dot_product_attention call over the dense-expanded bf16
+    prefix with the sp_len mask (expansion excluded)."""
+    import torch
+    import torch.nn.functional as F
+
+    kd = dense_expand(a["k_vals"], a["k_idx"], a.get("k_scale")).bfloat16()
+    vd = dense_expand(a["v_vals"], a["v_idx"], a.get("v_scale")).bfloat16()
+    q = a["q"].bfloat16()
+    mask = (torch.arange(CS, device="cuda")[None] < a["sp_len"][:, None]
+            )[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)
+
+
+def chunk_phase():
+    """B3 and B4 against their plain twins, B4 == B3 bit for bit on the same
+    logical rows, then their times at the engine's chunk shape."""
+    import torch
+    from repro_torch.kernels.swan_chunk.swan_chunk import (
+        swan_chunk_stats, swan_chunk_stats_paged, swan_chunk_stats_paged_plain,
+        swan_chunk_stats_plain)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    # kernel and twin both compute in f32 on the same dequantised values, so
+    # every value type is held near f32 agreement
+    tol = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4, "fp8": 1e-4}
+    names = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
+    cases = {"sp_len 1000 | 1920": [1000, 1920], "sp_len 0 | 1000": [0, 1000],
+             "sp_len 1920 | dead lane": [1920, 0]}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    max_err, rows = {}, {}
+    for kind in ("bf16", "int8", "fp8", "f32"):
+        for case, sp in cases.items():
+            a = chunk_inputs(kind, sp, gen)
+            pool, tab = page_out(a, sp, gen, [n for n in names if n in a],
+                                 P_CHUNK, pg=CPG)
+            if "dead" in case:        # a dead lane reads a live lane's pages
+                tab[1] = tab[0]
+            sargs = [a[n] for n in ("q", "k_vals", "k_idx", "v_vals", "v_idx",
+                                    "sp_len")]
+            skw = {"k_scale": a.get("k_scale"), "v_scale": a.get("v_scale")}
+            pargs = [a["q"], pool["k_vals"], pool["k_idx"], pool["v_vals"],
+                     pool["v_idx"], a["sp_len"], tab]
+            pkw = {"pool_k_scale": pool.get("k_scale"),
+                   "pool_v_scale": pool.get("v_scale")}
+            slab = swan_chunk_stats(*sargs, **skw)
+            paged = swan_chunk_stats_paged(*pargs, **pkw)
+            want = swan_chunk_stats_plain(*sargs, **skw)
+            want_p = swan_chunk_stats_paged_plain(*pargs, **pkw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(slab, paged))
+            m, l, o = slab
+            wm, wl, wo = want
+            live = wl > 0
+            on = lambda x, y: (x / y.clamp(min=1e-30)[..., None])  # noqa: E731
+            errs = {"m_safe": (m - wm).abs(), "l": (l - wl).abs() / (1 + wl.abs()),
+                    "o/l": (on(o, l) - on(wo, wl))[live].abs()}
+            errs["o/l"] = errs["o/l"] / (1 + on(wo, wl)[live].abs())
+            err = max(e.max().item() if e.numel() else 0.0 for e in errs.values())
+            twin_same = all(torch.equal(x, y) for x, y in zip(want, want_p))
+            empty = (a["sp_len"] == 0)
+            zeros = all(not bool(x[empty].any()) for x in slab)
+            log(f"  swan_chunk_stats[{kind:4s}] {case}: max err (abs+rel over "
+                f"m_safe, l, o/l) {err:.3e} (tol {tol[kind]:g}); paged == slab "
+                f"bit for bit: {same}; empty lanes (0, 0, 0): {zeros}")
+            check(all(bool(torch.isfinite(x).all()) for x in slab + paged)
+                  and err <= tol[kind] and zeros and twin_same,
+                  f"swan_chunk_stats[{kind}] {case}: kernel disagrees with plain")
+            check(same, f"swan_chunk_stats_paged[{kind}] {case}: != swan_chunk_stats")
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
+            if kind == "bf16" and case == "sp_len 1000 | 1920":
+                nbytes, flops = chunk_bytes_flops(a)
+                lib_fn = chunk_sdpa_yardstick(a)
+                rows["swan_chunk_stats"] = timed_rows(
+                    "swan_chunk_stats[bf16] P=2 Q=1024 sp_len 1000|1920",
+                    lambda: swan_chunk_stats(*sargs, **skw),
+                    lambda: swan_chunk_stats_plain(*sargs, **skw), lib_fn,
+                    nbytes, flops, flush)
+                rows["swan_chunk_stats_paged"] = timed_rows(
+                    "swan_chunk_stats_paged[bf16] same operands, paged",
+                    lambda: swan_chunk_stats_paged(*pargs, **pkw),
+                    lambda: swan_chunk_stats_paged_plain(*pargs, **pkw), lib_fn,
+                    nbytes + tab.numel() * 4, flops, flush)
+    del flush
+    return max_err, rows
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
-def serve_phase(kernels):
+def full_model():
+    """Full-width llama3-8b (bf16) from seeded weights, calibrated and
+    absorbed: (cfg, params, projections), shared by the serve and engine
+    phases."""
     import torch
-    from repro_torch.configs import SwanConfig, get_config
+    from repro_torch.configs import get_config
     from repro_torch.launch.io import make_batch
     from repro_torch.models.registry import get_model
-    from repro_torch.runtime.serve_loop import ServeSession, calibrate_swan
+    from repro_torch.runtime.serve_loop import calibrate_swan
 
     cfg = get_config("llama3-8b")
     api = get_model(cfg)
@@ -240,6 +494,16 @@ def serve_phase(kernels):
         f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype})")
+    return cfg, params, projections
+
+
+def serve_phase(kernels, model):
+    import torch
+    from repro_torch.configs import SwanConfig
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    cfg, params, projections = model
     swan = SwanConfig(k_max=K, buffer=BUF, mode="topk")
     sess = ServeSession(cfg, params, swan=swan, projections=projections,
                         max_seq=S, batch=B, device="cuda")
@@ -285,17 +549,17 @@ def serve_phase(kernels):
     log(f"  launches during generate: {launches} over {steps} decode steps")
     log(f"  seq 0 tokens: {out[0, :16].tolist()} ...")
     profile_decode(sess, out[:, -1], 4)
-    del sess, params, projections, logits
+    del sess, logits
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_decode(sess, tok, steps: int) -> None:
-    """Trace ``steps`` more greedy decode steps with torch.profiler: the ops
-    by device time, the card's busy share of the traced wall time and the
-    decode kernel's share of the device time.  The profiler slows the host,
-    so the busy share is a floor."""
+def trace_steps(step, steps: int, what: str) -> None:
+    """Trace ``steps`` calls of ``step`` with torch.profiler: the ops by
+    device time, the card's busy share of the traced wall time and the SWAN
+    kernels' share of the device time.  The profiler slows the host, so the
+    busy share is a floor."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -303,31 +567,189 @@ def profile_decode(sess, tok, steps: int) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            tok = torch.argmax(sess.decode(tok).float(), dim=-1)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ka = prof.key_averages()
     log(ka.table(sort_by="self_device_time_total", row_limit=12))
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    swan = sum(e.self_device_time_total for e in kernels
-               if "swan_decode_kernel" in e.key) / 1e3
     n_ops = sum(e.count for e in ka if e.key.startswith("aten::")) / steps
     if busy == 0:
         log("  profile: the profiler traced no device time")
         return
-    log(f"  profile: {steps} decode steps, {wall_ms / steps:.1f} ms/step wall "
+    shares = []
+    for name in ("swan_decode_kernel", "swan_chunk_kernel"):
+        t = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+        if t:
+            shares.append(f"{name} {t / steps:.1f} ms/step "
+                          f"({100 * t / busy:.1f}% of device time)")
+    log(f"  profile: {steps} {what}, {wall_ms / steps:.1f} ms/step wall "
         f"(traced), card busy {busy / steps:.1f} ms/step "
-        f"({100 * busy / wall_ms:.1f}%), swan_decode {swan / steps:.1f} ms/step "
-        f"({100 * swan / busy:.1f}% of device time), {n_ops:.0f} aten ops/step")
+        f"({100 * busy / wall_ms:.1f}%), {', '.join(shares)}, "
+        f"{n_ops:.0f} aten ops/step")
 
 
-def exact_phase(kernels):
+def profile_decode(sess, tok, steps: int) -> None:
+    """Trace ``steps`` more greedy decode steps of the lockstep session."""
     import torch
+    state = {"tok": tok}
+
+    def step():
+        state["tok"] = torch.argmax(sess.decode(state["tok"]).float(), dim=-1)
+    trace_steps(step, steps, "decode steps")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the continuous-batching engine, slab then paged
+# ---------------------------------------------------------------------------
+
+ENGINE_LENS = (2048, 640, 1536, 100, 1024, 1900, 300, 777)
+ENGINE_K = (64, 32, 48, 64)
+ENGINE_NEW = 32
+ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_LANES = 4, 256, 2
+
+
+def engine_requests(cfg):
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_engine import Request
+    return [Request(uid=f"req{i}",
+                    tokens=make_batch(cfg, 1, n, seed=100 + i,
+                                      device="cpu")["tokens"][0].tolist(),
+                    max_new_tokens=ENGINE_NEW, k=ENGINE_K[i % len(ENGINE_K)])
+            for i, n in enumerate(ENGINE_LENS)]
+
+
+def engine_run(kernels, model, label, **kw):
+    """Serve the engine trace once; every step ends synchronised, so the
+    per-step wall times add up to the run.  Returns (tokens by request,
+    launches, the engine)."""
+    import torch
+    from repro_torch.configs import SwanConfig
+    from repro_torch.runtime.serve_engine import ServeEngine
+    cfg, params, projections = model
+    eng = ServeEngine(cfg, params, swan=SwanConfig(k_max=K, buffer=BUF),
+                      projections=projections, max_seq=S,
+                      n_slots=ENGINE_SLOTS, prefill_chunk=ENGINE_CHUNK,
+                      prefill_slots=ENGINE_LANES, device="cuda", **kw)
+    for r in engine_requests(cfg):
+        eng.submit(r)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ends, kinds, peak_live = [], [], 0
+    while not eng.done:
+        n_chunk, n_dec = eng.dispatches["chunk"], eng.dispatches["decode"]
+        eng.step()
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter() - t0)
+        kinds.append((eng.dispatches["chunk"] - n_chunk,
+                      eng.dispatches["decode"] - n_dec))
+        peak_live = max(peak_live, eng.cache_report()["live_bytes"])
+    wall = ends[-1]
+    launches = {k.name: k.launches for k in kernels}
+    peak_mem = torch.cuda.max_memory_allocated()
+    comps = {c.uid: c for c in eng.completions}
+    step_ms = [1e3 * (e - b) for b, e in zip([0.0] + ends[:-1], ends)]
+    dec_only = [ms for ms, (c, d) in zip(step_ms, kinds) if d and not c]
+    with_chunk = [ms for ms, (c, d) in zip(step_ms, kinds) if c]
+    # decode tokens: every generated token after the first of each request
+    n_dec_tok = sum(len(c.tokens) - 1 for c in comps.values())
+    ttft_steps = statistics.mean(c.first_token_step for c in comps.values())
+    ttft_ms = statistics.mean(1e3 * ends[c.first_token_step]
+                              for c in comps.values())
+    rep = eng.cache_report()
+    d = eng.dispatches
+    log(f"  [{label}] {eng.step_count} engine steps, dispatches {d}, "
+        f"launches {launches}")
+    log(f"  [{label}] wall {wall:.2f} s; {sum(len(c.tokens) for c in comps.values())} "
+        f"tokens; decode {n_dec_tok / wall:.1f} tok/s over the run; steps "
+        f"with a chunk dispatch {statistics.mean(with_chunk):.1f} ms mean "
+        f"({len(with_chunk)}), decode-only steps "
+        f"{statistics.mean(dec_only) if dec_only else float('nan'):.1f} ms "
+        f"mean ({len(dec_only)}); mean time to first token {ttft_steps:.1f} "
+        f"steps, {ttft_ms:.0f} ms")
+    log(f"  [{label}] cache_report: reserved {rep['reserved_bytes']} B, live "
+        f"{rep['live_bytes']} B at the end (peak live {peak_live} B), "
+        f"page table shipped {rep.get('page_table_shipped_bytes', 0)} B; "
+        f"device memory peak {peak_mem / 2**30:.2f} GiB")
+    n_l = cfg.n_layers
+    dec, chunk = ("swan_decode", "swan_chunk_stats") if label == "slab" else \
+        ("swan_decode_paged", "swan_chunk_stats_paged")
+    check(launches[dec] == n_l * d["decode"] and launches[chunk] == n_l * d["chunk"]
+          and d["decode"] > 0 and d["chunk"] > 0,
+          f"[{label}] launches {launches} != {n_l} x dispatches {d}")
+    others = set(launches) - {dec, chunk}
+    check(all(launches[o] == 0 for o in others),
+          f"[{label}] another layout's kernel ran: {launches}")
+    check(len(comps) == len(ENGINE_LENS)
+          and all(len(c.tokens) == ENGINE_NEW for c in comps.values()),
+          f"[{label}] not every request completed")
+    check(all(0 <= t < cfg.vocab_size for c in comps.values() for t in c.tokens),
+          f"[{label}] token ids out of range")
+    return {u: c.tokens for u, c in comps.items()}, launches, eng
+
+
+def engine_phase(kernels, model):
+    import torch
+    slab_tokens, slab_launches, slab = engine_run(kernels, model, "slab")
+    slab_reserved = slab.cache_report()["reserved_bytes"]
+    del slab
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged_tokens, paged_launches, paged = engine_run(kernels, model, "paged",
+                                                     paged=True, page_size=PS)
+    same = [u for u in slab_tokens if slab_tokens[u] == paged_tokens[u]]
+    log(f"  paged tokens == slab tokens for {len(same)} of {len(slab_tokens)} "
+        f"requests; req0: {paged_tokens['req0'][:12]} ...")
+    check(len(same) == len(slab_tokens), "paged engine tokens != slab engine's")
+    live = paged.cache_report()["live_bytes"]
+    check(live < slab_reserved,
+          f"paged live bytes {live} not below the slab's reserved {slab_reserved}")
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # trace 4 engine steps with chunks in flight (a fresh slab engine, two
+    # steps in: the 2048-token prompt takes 8 chunks)
+    from repro_torch.configs import SwanConfig
+    from repro_torch.runtime.serve_engine import ServeEngine
+    cfg, params, projections = model
+    eng = ServeEngine(cfg, params, swan=SwanConfig(k_max=K, buffer=BUF),
+                      projections=projections, max_seq=S,
+                      n_slots=ENGINE_SLOTS, prefill_chunk=ENGINE_CHUNK,
+                      prefill_slots=ENGINE_LANES, device="cuda")
+    for r in engine_requests(cfg):
+        eng.submit(r)
+    for _ in range(2):
+        eng.step()
+    n0 = dict(eng.dispatches)
+    trace_steps(eng.step, 4, "engine steps")
+    log(f"  traced steps' dispatches: chunk "
+        f"{eng.dispatches['chunk'] - n0['chunk']}, decode "
+        f"{eng.dispatches['decode'] - n0['decode']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"engine_slab": slab_launches, "engine_paged": paged_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the chunked prefill at full retention against the dense prefill
+# ---------------------------------------------------------------------------
+
+def small_model():
+    """The exactness phases' model: llama3-8b at full width, 4 layers,
+    seeded weights, calibrated, with the full-retention SwanConfig (k =
+    d_head).  Returns (cfg, api, params, projections, absorbed, swan)."""
     from repro_torch.configs import SwanConfig, get_config
     from repro_torch.launch.io import make_batch
     from repro_torch.models.registry import get_model
-    from repro_torch.runtime.serve_loop import ServeSession, calibrate_swan
+    from repro_torch.runtime.serve_loop import calibrate_swan
 
     cfg = get_config("llama3-8b").replace(n_layers=4)
     api = get_model(cfg)
@@ -336,6 +758,65 @@ def exact_phase(kernels):
                           make_batch(cfg, 4, 64, seed=3, device="cuda"))
     absorbed = api.absorb(params, cfg, proj)
     full = SwanConfig(k_max=cfg.d_head, buffer=BUF, mode="topk")
+    return cfg, api, params, proj, absorbed, full
+
+
+def chunk_exact_phase(kernels):
+    """Full retention (k = d_head) makes winnowing lossless: a 512-token
+    prompt prefilled as 2 chunks of 256 (slab, then paged) must give the
+    dense monolithic prefill's last logits within the bf16 tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.page_pool import PagePool
+
+    cfg, api, params, proj, absorbed, full = small_model()
+    n, C, max_seq = 512, ENGINE_CHUNK, 1024
+    prompt = make_batch(cfg, 1, n, seed=5, device="cuda")
+    dense_state = api.init_serve_state(cfg, None, 1, max_seq, "cuda")
+    want, _ = api.prefill(params, cfg, prompt, dense_state)
+    want = want[:, 0].float()
+    scale = max(1.0, want.abs().max().item())
+    kern = {k.name: k for k in kernels}
+    worst = 0.0
+    for layout in ("slab", "paged"):
+        name = "swan_chunk_stats" if layout == "slab" else "swan_chunk_stats_paged"
+        before = kern[name].launches
+        if layout == "slab":
+            state = api.init_serve_state(cfg, full, 1, max_seq, "cuda")
+            pool = None
+        else:
+            pool = PagePool(max_seq // PS + 1, max_seq // PS, 1, PS)
+            state = api.init_paged_state(cfg, full, 1, max_seq, pool.n_pages,
+                                         PS, "cuda")
+        for c0 in range(0, n, C):
+            kw = {"prefix_len": c0 + C}
+            if pool is not None:
+                pool.ensure(0, max(c0 + C - BUF, 0))
+                width = 1 << max(int(pool.n_mapped[0]) - 1, 0).bit_length()
+                kw = {"page_tab": torch.as_tensor(
+                    np.ascontiguousarray(pool.table[:, :width]), device="cuda")}
+            got, state = api.prefill_chunk(
+                absorbed, cfg, {"tokens": prompt["tokens"][:, c0:c0 + C]},
+                state, [0], [c0], full, proj, true_len=[C], **kw)
+        err = (got.float() - want).abs().max().item()
+        agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+        log(f"  [{layout}] {n // C} chunks of {C}: max|chunked - dense| {err:.4f} "
+            f"(max|dense| {scale:.2f}, tol {5e-2 * scale:.4f}); argmax "
+            f"agrees: {agree}; {name} launches "
+            f"{kern[name].launches - before}")
+        check(err <= 5e-2 * scale, f"[{layout}] chunked logits differ from dense")
+        check(kern[name].launches - before == cfg.n_layers * (n // C),
+              f"[{layout}] the chunk path did not go through {name}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def exact_phase(kernels):
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    cfg, _, params, proj, absorbed, full = small_model()
     s_swan = ServeSession(cfg, absorbed, swan=full, projections=proj,
                           max_seq=1024, batch=B, device="cuda")
     s_dense = ServeSession(cfg, params, max_seq=1024, batch=B, device="cuda")
@@ -361,7 +842,27 @@ def exact_phase(kernels):
     return worst
 
 
-def main() -> int:
+KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
+    "swan_decode": ("src/repro_torch/kernels/swan_decode/csrc/swan_decode.cu",
+                    "src/repro/kernels/swan_decode/swan_decode.py:196"),
+    "swan_decode_paged": ("src/repro_torch/kernels/swan_decode/csrc/swan_decode.cu",
+                          "src/repro/kernels/swan_decode/swan_decode.py:266"),
+    "swan_chunk_stats": ("src/repro_torch/kernels/swan_chunk/csrc/swan_chunk.cu",
+                         "src/repro/kernels/flash_prefill/swan_chunk.py:196"),
+    "swan_chunk_stats_paged": ("src/repro_torch/kernels/swan_chunk/csrc/swan_chunk.cu",
+                               "src/repro/kernels/flash_prefill/swan_chunk.py:241"),
+}
+PHASES = ("kernels", "serve", "exact", "engine", "chunk_exact")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run (default: all); a "
+                         "partial run prints no result line")
+    args = ap.parse_args(argv)
+    phases = args.only.split(",")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -381,34 +882,69 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_all(KERNELS)
-    log(f"[build] {len(KERNELS)} kernel librar{'y' if len(KERNELS) == 1 else 'ies'} "
-        f"in {time.perf_counter() - t0:.1f} s")
-    for k in KERNELS:
-        for line in k.ptxas_log.splitlines():
+    libs = {k.library.name: k.library for k in KERNELS}
+    log(f"[build] {len(libs)} kernel libraries ({', '.join(libs)}), one nvcc "
+        f"each, in parallel: {time.perf_counter() - t0:.1f} s")
+    for lib in libs.values():
+        for line in lib.ptxas_log.splitlines():
             if "registers" in line or "spill" in line and " 0 bytes" not in line:
-                log(f"  {k.name}: {line.strip()}")
+                log(f"  {lib.name}: {line.strip()}")
 
-    log("[kernels] swan_decode vs plain (B=4 Kv=8 G=4 dh=128 k=64 b=128 S=4096)")
-    max_err, rows = kernel_phase()
+    err, rows = {}, {}
+    by_path = {}          # kernel -> {main path: launches in its run}
 
-    log("[serve] llama3-8b, SWAN k=64 b=128, lockstep ServeSession")
-    launches = serve_phase(KERNELS)
+    def record(path, counts):
+        for name, n in counts.items():
+            if n:
+                by_path.setdefault(name, {})[path] = n
 
-    log("[exact] 4 layers at full width, SWAN k=d_head vs dense cache")
-    worst = exact_phase(KERNELS)
-    log(f"  worst relative logit error {worst:.4f}")
+    if "kernels" in phases:
+        log("[kernels] swan_decode vs plain (B=4 Kv=8 G=4 dh=128 k=64 b=128 S=4096)")
+        e, r = kernel_phase()
+        err["swan_decode"], rows["swan_decode"] = e["bf16"], r["bf16"]
+        log(f"[kernels] swan_decode_paged vs plain and vs swan_decode (page "
+            f"size {PS}, {PG} table entries, {N_PAGES} pool pages)")
+        e, rows["swan_decode_paged"] = paged_decode_phase()
+        err["swan_decode_paged"] = e["bf16"]
+        log(f"[kernels] swan_chunk_stats(_paged) vs plain (P={P_CHUNK} "
+            f"Q={Q_CHUNK} dh={DH} k={K}, slab {CS} rows / {CPG} pages)")
+        e, r = chunk_phase()
+        rows.update(r)
+        err["swan_chunk_stats"] = err["swan_chunk_stats_paged"] = e["bf16"]
+    model = full_model() if {"serve", "engine"} & set(phases) else None
+    if "serve" in phases:
+        log("[serve] llama3-8b, SWAN k=64 b=128, lockstep ServeSession")
+        record("serve", serve_phase(KERNELS, model))
+    if "exact" in phases:
+        log("[exact] 4 layers at full width, SWAN k=d_head vs dense cache")
+        worst = exact_phase(KERNELS)
+        log(f"  worst relative logit error {worst:.4f}")
+    if "engine" in phases:
+        log("[engine] llama3-8b, ServeEngine (4 slots, chunk 256 x 2 lanes), "
+            "slab then paged")
+        for path, counts in engine_phase(KERNELS, model).items():
+            record(path, counts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "chunk_exact" in phases:
+        log("[chunk_exact] 4 layers at full width, k=d_head: chunked prefill "
+            "(slab, paged) vs the dense monolithic prefill")
+        worst = chunk_exact_phase(KERNELS)
+        log(f"  worst relative logit error {worst:.4f}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    if set(phases) != set(PHASES):
+        return 0                        # a partial run prints no result
 
-    bf16 = rows["bf16"]
+    check(set(by_path) == set(KERNEL_ROWS),
+          f"a kernel ran on no main path: {by_path}")
     print(smi)                          # the card's name and power limit
-    print(json.dumps({"kernels": [{
-        "name": "swan_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/swan_decode/csrc/swan_decode.cu",
-        "replaces": "src/repro/kernels/swan_decode/swan_decode.py:196",
-        "launches": launches["swan_decode"], "max_abs_err": max_err["bf16"],
-        "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
-        "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-        "library_ms": bf16["library_ms"]}]}))
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name], "max_abs_err": err[name],
+         **rows[name]}
+        for name, (src, rep) in KERNEL_ROWS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

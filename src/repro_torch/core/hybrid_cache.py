@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.winnow import winnow_vector
@@ -197,11 +198,16 @@ def swan_cache_insert_decode_(cache: Params, swan, k_hat: torch.Tensor,
 
 
 def swan_cache_insert_prefill_(cache: Params, swan, k_hat: torch.Tensor,
-                               v_hat: torch.Tensor, k_act=None) -> Params:
+                               v_hat: torch.Tensor, k_act=None,
+                               true_len=None) -> Params:
     """Bulk insert a prefill of S tokens (positions 0..S-1), in place.
 
     Tokens [0, S-b) are winnowed into the sparse cache; the last min(S, b)
-    tokens land dense in the ring at their natural slots (t % b)."""
+    tokens land dense in the ring at their natural slots (t % b).
+    ``true_len`` (python int) supports prompt-length bucketing: S is the
+    padded length and only [0, true_len) are real, so the ring holds
+    [true_len - b, true_len); overshoot rows past true_len - b stay in the
+    invalid region (>= sp_len) until decode evictions rewrite them."""
     S = k_hat.shape[1]
     b = swan.buffer
     n_sp = max(S - b, 0) if b else S
@@ -216,12 +222,108 @@ def swan_cache_insert_prefill_(cache: Params, swan, k_hat: torch.Tensor,
                             slice(0, n_sp))
     if b == 0:
         return cache
-    tail = torch.arange(n_sp, S, device=k_hat.device)
-    slots = tail % b
-    cache["buf_k"][:, :, slots] = kt[:, :, n_sp:].to(cache["buf_k"].dtype)
-    cache["buf_v"][:, :, slots] = vt[:, :, n_sp:].to(cache["buf_v"].dtype)
-    cache["buf_pos"][:, slots] = tail.to(torch.int32)
+    if true_len is None:
+        tail = torch.arange(n_sp, S, device=k_hat.device)
+        src, ring_pos = tail, tail
+    else:
+        tail = int(true_len) - b + torch.arange(b, device=k_hat.device)
+        src = torch.clamp(tail, 0, S - 1)
+        ring_pos = torch.where(tail >= 0, tail, torch.full_like(tail, -1))
+    slots = torch.remainder(tail, b)     # b consecutive ints: all residues
+    cache["buf_k"][:, :, slots] = kt[:, :, src].to(cache["buf_k"].dtype)
+    cache["buf_v"][:, :, slots] = vt[:, :, src].to(cache["buf_v"].dtype)
+    cache["buf_pos"][:, slots] = ring_pos.to(torch.int32)
     return cache
+
+
+def chunk_evict_winnow(cache: Params, swan, k_hat: torch.Tensor,
+                       v_hat: torch.Tensor, start, true_len, k_act=None):
+    """Bulk analogue of ``decode_evict_winnow`` for prefill CHUNKS of S
+    (padded) tokens, one per lane, at positions [start_p, start_p +
+    true_len_p) of a cache whose lane ``p`` holds tokens [0, start_p).
+    Reads only.
+
+    Each lane's chunk pops the positions [start - b, start + true_len - b):
+    the first ``true_len`` entries of the position-ordered sequence
+    [ring occupants at start-b .. start-1 ‖ chunk tokens]; the new ring
+    holds the next b entries, at their natural slots, exactly where a
+    monolithic ``true_len``-anchored prefill would put them.
+
+    Returns ``(dest [B], packed_k, packed_v, ring)``: the caller commits
+    each lane's S packed vectors CONTIGUOUSLY at sparse rows [dest, dest +
+    S), dest = max(start - b, 0) (rows past start + true_len - b are
+    overshoot that later chunks or evictions rewrite before they become
+    valid), and replaces the lanes' rings with ``ring`` (new
+    buf_k/buf_v/buf_pos tensors; empty with ``b == 0``)."""
+    B, S = k_hat.shape[:2]
+    b = swan.buffer
+    dev = k_hat.device
+    start = per_seq_pos(start, B, dev).long()                # [B]
+    true_len = per_seq_pos(true_len, B, dev).long()
+    kt = k_hat.transpose(1, 2)                               # [B, Kv, S, dh]
+    vt = v_hat.transpose(1, 2)
+    if b == 0:   # winnow immediately, no ring
+        return (start, winnow_vector(kt, swan, "k", k_act),
+                winnow_vector(vt, swan, "v", k_act), {})
+    ar_b = torch.arange(b, device=dev)
+    ring_order = torch.remainder(start[:, None] - b + ar_b[None], b)  # [B, b]
+    bi = torch.arange(B, device=dev)[:, None]
+    comb_k = torch.cat([cache["buf_k"][bi, :, ring_order].transpose(1, 2)
+                        .to(kt.dtype), kt], dim=2)           # [B, Kv, b+S, dh]
+    comb_v = torch.cat([cache["buf_v"][bi, :, ring_order].transpose(1, 2)
+                        .to(vt.dtype), vt], dim=2)
+    w_off = torch.clamp(b - start, 0, b)                     # [B]
+    dest = torch.clamp(start - b, min=0)
+    sel = w_off[:, None] + torch.arange(S, device=dev)[None]         # [B, S]
+    packed_k = winnow_vector(comb_k[bi, :, sel].transpose(1, 2), swan, "k",
+                             k_act)
+    packed_v = winnow_vector(comb_v[bi, :, sel].transpose(1, 2), swan, "v",
+                             k_act)
+    tail = (start + true_len)[:, None] - b + ar_b[None]              # [B, b]
+    slots = torch.remainder(tail, b)
+    src = true_len[:, None] + ar_b[None]
+    ring = {n: cache[n].clone() for n in ("buf_k", "buf_v", "buf_pos")}
+    ring["buf_k"][bi, :, slots] = comb_k[bi, :, src].to(ring["buf_k"].dtype)
+    ring["buf_v"][bi, :, slots] = comb_v[bi, :, src].to(ring["buf_v"].dtype)
+    ring["buf_pos"][bi, slots] = torch.where(
+        tail >= 0, tail, torch.full_like(tail, -1)).to(torch.int32)
+    return dest, packed_k, packed_v, ring
+
+
+def host_ints(x) -> np.ndarray:
+    """Per-lane schedule operands (slots, starts, lengths) as host int64
+    [P]; a tensor is copied back to the host."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu()
+    return np.asarray(x, dtype=np.int64).reshape(-1)
+
+
+def kept_lane_rows(lane, start, S: int, n: int, rows: int, device):
+    """The (lane, row) writes of per-lane chunks that land: lane ``p``
+    writes rows [start_p, start_p + S) of batch lane ``lane_p``; dead lanes
+    (``lane >= n``) and rows past ``rows`` are dropped.  Selected on the
+    host, so no two kept writes collide.  Returns index tensors (lane,
+    row, chunk lane p, chunk position) on ``device``."""
+    lane, start = host_ints(lane), host_ints(start)
+    r = start[:, None] + np.arange(S)[None]                  # [P, S]
+    pi, si = np.nonzero((lane[:, None] < n) & (r < rows))
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (lane[pi], r[pi, si], pi, si))
+
+
+def write_sparse_rows_(side: Params, packed: Params, lane, dest) -> Params:
+    """Commit packed chunk vectors [P, Kv, S, ...] at rows [dest_p, dest_p +
+    S) of batch lanes ``lane [P]``, in place (the slab commit of the
+    batched chunked prefill); dead lanes and rows past the slab are
+    dropped (``kept_lane_rows``)."""
+    li, ri, pi, si = kept_lane_rows(lane, dest, packed["vals"].shape[2],
+                                    side["vals"].shape[0],
+                                    side["vals"].shape[2], side["vals"].device)
+    for name in ("vals", "idx", "scale"):
+        if name in side:
+            src = packed[name].transpose(1, 2)[pi, si]       # [N, Kv, ...]
+            _bits(side[name])[li, :, ri] = _bits(src.to(side[name].dtype))
+    return side
 
 
 def sparse_len(swan, pos: torch.Tensor) -> torch.Tensor:

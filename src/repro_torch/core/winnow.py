@@ -81,6 +81,18 @@ def truncate_pack(x: torch.Tensor, k_max: int,
     return vals
 
 
+def unpack_dense(vals: torch.Tensor, idx: Optional[torch.Tensor],
+                 dh: int) -> torch.Tensor:
+    """Expand packed vectors [..., k] -> dense [..., dh] in ``vals``' dtype
+    (truncate mode, ``idx`` None, pads).  Used by the oracle and the
+    chunked-prefill bulk read only; the cache itself stays packed."""
+    if idx is None:
+        return torch.nn.functional.pad(vals, (0, dh - vals.shape[-1]))
+    dense = torch.zeros((*vals.shape[:-1], dh), dtype=vals.dtype,
+                        device=vals.device)
+    return dense.scatter_(-1, idx.long(), vals)
+
+
 # ---------------------------------------------------------------------------
 # Quantization
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface.  At first
+Each kernel library is one ``csrc/*.cu`` file with a plain C interface
+(it may hold several kernels, each with its own launch count).  At first
 use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``<repo>/build/kernels/`` (listed in ``.gitignore``), named by a hash of the
 source, and loaded with ``ctypes``.  Nothing is built when a module is
@@ -34,10 +35,10 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-class CudaKernel:
-    """One kernel library: where its source is, how its C functions are
-    typed (``bind``), and how many times the port launched it
-    (``launches``, bumped by the wrapper at each launch and nowhere else)."""
+class CudaLibrary:
+    """One ``csrc/*.cu`` source built into one shared library: where its
+    source is, how its C functions are typed (``bind``), and the ptxas
+    report of its last build."""
 
     def __init__(self, name: str, source: Path,
                  bind: Callable[[ctypes.CDLL], None]):
@@ -46,7 +47,6 @@ class CudaKernel:
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
-        self.launches = 0
         self.ptxas_log = ""
 
     def library_path(self) -> Path:
@@ -80,9 +80,24 @@ class CudaKernel:
             return self._lib
 
 
+class CudaKernel:
+    """One kernel the port launches, in a :class:`CudaLibrary` (several
+    kernels may share one library), and how many times the port launched
+    it (``launches``, bumped by the wrapper at each launch and nowhere
+    else)."""
+
+    def __init__(self, name: str, library: CudaLibrary):
+        self.name = name
+        self.library = library
+        self.launches = 0
+
+    def lib(self) -> ctypes.CDLL:
+        return self.library.lib()
+
+
 def build_all(kernels: Iterable[CudaKernel]) -> List[Path]:
-    """Build every kernel at once: one nvcc process per source, started
-    together."""
-    ks = list(kernels)
-    with ThreadPoolExecutor(max_workers=max(len(ks), 1)) as pool:
-        return list(pool.map(lambda k: k.build(), ks))
+    """Build the libraries of these kernels at once: one nvcc process per
+    source, started together."""
+    libs = list({id(k.library): k.library for k in kernels}.values())
+    with ThreadPoolExecutor(max_workers=max(len(libs), 1)) as pool:
+        return list(pool.map(lambda lib: lib.build(), libs))

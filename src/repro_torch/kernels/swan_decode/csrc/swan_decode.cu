@@ -1,10 +1,19 @@
-// SWAN slab decode attention for Hopper (sm_90a).
+// SWAN decode attention for Hopper (sm_90a), slab and paged.
 //
-// Replaces the TPU kernel `swan_decode_pallas` (src/repro/kernels/swan_decode/
-// swan_decode.py): one decode query group attends over [packed sparse prefix ||
+// Replaces the TPU kernels `swan_decode_pallas` (slab) and
+// `swan_decode_paged_pallas` (page pool), src/repro/kernels/swan_decode/
+// swan_decode.py: one decode query group attends over [packed sparse prefix ||
 // dense ring] with ONE online softmax, reading the compressed cache as it is
 // stored (no dense [S, dh] tensor is ever formed, in device memory or in shared
 // memory).
+//
+// Slab and paged share one body; only the address of sparse row t differs
+// (`sparse_row`): slab row ((b*Kv + kv)*S + t), paged row
+// ((page_tab[b, t / ps]*Kv + kv)*ps + t % ps), the scale addressed the same
+// way.  Each block reads its own page ids (the TPU kernel's scalar prefetch);
+// rows past sp_len are never read, so trash-page tails are never touched.  The
+// arithmetic and its order do not depend on the layout, so the paged kernel
+// equals the slab kernel bit for bit on the same logical rows.
 //
 // What bounds it: device-memory bytes.  Per (sequence, kv head) it streams the
 // sp_len valid packed rows (k values of 1-4 bytes + k int8 indices, per side,
@@ -62,6 +71,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Row index of sparse row t of (sequence bi, kv head kv): slab when page_tab is
+// null, else through the page table (S = Pg * ps logical rows).  A page id out
+// of [0, n_pages) is clamped so that a corrupt table can never address outside
+// the pool.
+__device__ __forceinline__ size_t sparse_row(const int* __restrict__ page_tab, int bi,
+                                             int kv, int Kv, int S, int ps, int n_pages,
+                                             int t) {
+  if (page_tab == nullptr) return (static_cast<size_t>(bi) * Kv + kv) * S + t;
+  const int page = min(max(__ldg(page_tab + static_cast<size_t>(bi) * (S / ps) + t / ps), 0),
+                       n_pages - 1);
+  return (static_cast<size_t>(page) * Kv + kv) * ps + t % ps;
+}
+
 // int8 index -> column; clamped so that a corrupt index can never address
 // outside this block's shared memory (valid top-k indices are < dh <= 128).
 __device__ __forceinline__ int col(int8_t i, int dh) {
@@ -78,8 +100,8 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
                    const float* __restrict__ v_scale, const QT* __restrict__ buf_k,
                    const QT* __restrict__ buf_v, const int* __restrict__ buf_pos,
                    const int* __restrict__ pos, const int* __restrict__ sp_len,
-                   QT* __restrict__ out, int Kv, int dh, int S, int k, int b,
-                   float scale) {
+                   const int* __restrict__ page_tab, QT* __restrict__ out, int Kv,
+                   int dh, int S, int k, int b, int ps, int n_pages, float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;                         // [G][dh]
   float* acc_s = q_s + G * dh;               // [kWarps][G][dh]
@@ -90,6 +112,7 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
 
   const int bk = blockIdx.x;                 // (sequence, kv head) = bi * Kv + kv
   const int bi = bk / Kv;
+  const int kv = bk % Kv;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int my_pos = pos[bi];
@@ -105,7 +128,6 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
 #pragma unroll
   for (int g = 0; g < G; ++g) { m[g] = kNegInf; l[g] = 0.f; }
   float* acc_w = acc_s + warp * G * dh;
-  const size_t row0 = static_cast<size_t>(bk) * S;
 
   for (int t0 = warp * kTileRows; t0 < n_sp; t0 += kWarps * kTileRows) {
     float s[kTileRows][G];
@@ -117,15 +139,16 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
       for (int g = 0; g < G; ++g) part[g] = 0.f;
       float ks = 1.f;
       if (t < n_sp) {
-        const VT* kv = k_vals + (row0 + t) * k;
-        const int8_t* ki = k_idx + (row0 + t) * k;
+        const size_t row = sparse_row(page_tab, bi, kv, Kv, S, ps, n_pages, t);
+        const VT* kr = k_vals + row * k;
+        const int8_t* ki = k_idx + row * k;
         for (int j = lane; j < k; j += 32) {
-          const float x = to_f32(kv[j]);
+          const float x = to_f32(kr[j]);
           const int d = col(ki[j], dh);
 #pragma unroll
           for (int g = 0; g < G; ++g) part[g] += x * q_s[g * dh + d];
         }
-        if (k_scale != nullptr) ks = k_scale[row0 + t];
+        if (k_scale != nullptr) ks = k_scale[row];
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -160,9 +183,10 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
     for (int r = 0; r < kTileRows; ++r) {
       const int t = t0 + r;
       if (t < n_sp) {
-        const VT* vv = v_vals + (row0 + t) * k;
-        const int8_t* vi = v_idx + (row0 + t) * k;
-        const float vs = (v_scale != nullptr) ? v_scale[row0 + t] : 1.f;
+        const size_t row = sparse_row(page_tab, bi, kv, Kv, S, ps, n_pages, t);
+        const VT* vv = v_vals + row * k;
+        const int8_t* vi = v_idx + row * k;
+        const float vs = (v_scale != nullptr) ? v_scale[row] : 1.f;
         for (int j = lane; j < k; j += 32) {
           const float x = to_f32(vv[j]) * vs;
           const int d = col(vi[j], dh);
@@ -252,8 +276,9 @@ template <typename QT, typename VT, int G>
 cudaError_t launch(const void* q, const void* k_vals, const void* k_idx, const void* v_vals,
                    const void* v_idx, const void* k_scale, const void* v_scale,
                    const void* buf_k, const void* buf_v, const void* buf_pos,
-                   const void* pos, const void* sp_len, void* out, int B, int Kv, int dh,
-                   int S, int k, int b, cudaStream_t stream) {
+                   const void* pos, const void* sp_len, const void* page_tab, void* out,
+                   int B, int Kv, int dh, int S, int k, int b, int ps, int n_pages,
+                   cudaStream_t stream) {
   const int smem = smem_bytes(G, dh, b);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kern = swan_decode_kernel<QT, VT, G>;
@@ -268,8 +293,9 @@ cudaError_t launch(const void* q, const void* k_vals, const void* k_idx, const v
       static_cast<const int8_t*>(v_idx), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const QT*>(buf_k),
       static_cast<const QT*>(buf_v), static_cast<const int*>(buf_pos),
-      static_cast<const int*>(pos), static_cast<const int*>(sp_len), static_cast<QT*>(out),
-      Kv, dh, S, k, b, static_cast<float>(1.0 / sqrt(static_cast<double>(dh))));
+      static_cast<const int*>(pos), static_cast<const int*>(sp_len),
+      static_cast<const int*>(page_tab), static_cast<QT*>(out), Kv, dh, S, k, b, ps, n_pages,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(dh))));
   return cudaGetLastError();
 }
 
@@ -277,14 +303,17 @@ template <typename QT, typename VT>
 cudaError_t launch_g(int G, const void* q, const void* kv, const void* ki, const void* vv,
                      const void* vi, const void* ks, const void* vs, const void* bk,
                      const void* bv, const void* bp, const void* pos, const void* sp,
-                     void* out, int B, int Kv, int dh, int S, int k, int b, cudaStream_t st) {
+                     const void* tab, void* out, int B, int Kv, int dh, int S, int k, int b,
+                     int ps, int np, cudaStream_t st) {
+#define SWAN_G_ARGS q, kv, ki, vv, vi, ks, vs, bk, bv, bp, pos, sp, tab, out, B, Kv, dh, S, k, b, ps, np, st
   switch (G) {
-    case 1: return launch<QT, VT, 1>(q, kv, ki, vv, vi, ks, vs, bk, bv, bp, pos, sp, out, B, Kv, dh, S, k, b, st);
-    case 2: return launch<QT, VT, 2>(q, kv, ki, vv, vi, ks, vs, bk, bv, bp, pos, sp, out, B, Kv, dh, S, k, b, st);
-    case 4: return launch<QT, VT, 4>(q, kv, ki, vv, vi, ks, vs, bk, bv, bp, pos, sp, out, B, Kv, dh, S, k, b, st);
-    case 8: return launch<QT, VT, 8>(q, kv, ki, vv, vi, ks, vs, bk, bv, bp, pos, sp, out, B, Kv, dh, S, k, b, st);
+    case 1: return launch<QT, VT, 1>(SWAN_G_ARGS);
+    case 2: return launch<QT, VT, 2>(SWAN_G_ARGS);
+    case 4: return launch<QT, VT, 4>(SWAN_G_ARGS);
+    case 8: return launch<QT, VT, 8>(SWAN_G_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef SWAN_G_ARGS
 }
 
 }  // namespace
@@ -292,21 +321,25 @@ cudaError_t launch_g(int G, const void* q, const void* kv, const void* ki, const
 // Type codes: q_type 0 = f32, 1 = bf16 (also the ring's and the output's type);
 // v_type 0 = f32, 1 = bf16, 2 = int8 (k_scale/v_scale required), 3 = fp8 e4m3.
 // v_type must equal q_type unless it is 2 or 3.  Pointers are device pointers of
-// contiguous tensors: q/out [B,Kv,G,dh], k/v_vals and k/v_idx [B,Kv,S,k],
-// k/v_scale [B,Kv,S] (or null), buf_k/v [B,Kv,b,dh], buf_pos [B,b],
-// pos/sp_len [B] (int32).
+// contiguous tensors: q/out [B,Kv,G,dh], buf_k/v [B,Kv,b,dh], buf_pos [B,b],
+// pos/sp_len [B] (int32).  Slab (page_tab null): k/v_vals and k/v_idx
+// [B,Kv,S,k], k/v_scale [B,Kv,S] (or null).  Paged: the same leaves as a pool
+// [n_pages,Kv,ps,k] (scale [n_pages,Kv,ps]) and page_tab [B, S/ps] int32, so
+// S is the shipped table width times ps.
 extern "C" int swan_decode_launch(int q_type, int v_type, const void* q, const void* k_vals,
                                   const void* k_idx, const void* v_vals, const void* v_idx,
                                   const void* k_scale, const void* v_scale, const void* buf_k,
                                   const void* buf_v, const void* buf_pos, const void* pos,
-                                  const void* sp_len, void* out, int B, int Kv, int G, int dh,
-                                  int S, int k, int b, void* stream) {
+                                  const void* sp_len, const void* page_tab, void* out, int B,
+                                  int Kv, int G, int dh, int S, int k, int b, int ps,
+                                  int n_pages, void* stream) {
   if (k < 1 || k > dh || dh > 128 || b < 1 || B < 1 || Kv < 1) return cudaErrorInvalidValue;
+  if (page_tab != nullptr && (ps < 1 || n_pages < 1 || S % ps != 0)) return cudaErrorInvalidValue;
   const bool quant = v_type == 2;
   if (quant != (k_scale != nullptr && v_scale != nullptr)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWAN_ARGS q, k_vals, k_idx, v_vals, v_idx, k_scale, v_scale, buf_k, buf_v, buf_pos, \
-                  pos, sp_len, out, B, Kv, dh, S, k, b, st
+                  pos, sp_len, page_tab, out, B, Kv, dh, S, k, b, ps, n_pages, st
   if (q_type == 0) {
     switch (v_type) {
       case 0: return launch_g<float, float>(G, SWAN_ARGS);

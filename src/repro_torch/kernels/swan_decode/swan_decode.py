@@ -1,15 +1,19 @@
-"""SWAN hybrid-cache decode attention: the CUDA kernel's wrapper.
+"""SWAN hybrid-cache decode attention: the CUDA kernels' wrappers.
 
 ``swan_decode`` has the contract of the TPU kernel ``swan_decode_pallas``
 (``repro/kernels/swan_decode/swan_decode.py:196``): q [B,Kv,G,dh] attends
 over the packed sparse prefix [B,Kv,S,k] (rows ``t < sp_len``) and the
 dense ring [B,Kv,b,dh] (slots ``0 <= buf_pos <= pos``) with one softmax,
-and returns o [B,Kv,G,dh] in q's dtype.
+and returns o [B,Kv,G,dh] in q's dtype.  ``swan_decode_paged`` has the
+contract of ``swan_decode_paged_pallas`` (same file :266): the packed
+prefix lives in a page pool [n_pages,Kv,ps,k] and sequence ``b``'s logical
+row ``t`` is row ``t % ps`` of page ``page_tab[b, t // ps]``.
 
-For CUDA tensors it launches ``csrc/swan_decode.cu`` (one block per
-(sequence, kv head); see the note at the top of that file) or raises; for
-CPU tensors it runs the plain twin ``swan_decode_reference``.  Arguments
-are checked the same way on both devices.
+For CUDA tensors they launch ``csrc/swan_decode.cu`` (one block per
+(sequence, kv head), one body for both layouts; see the note at the top of
+that file) or raise; for CPU tensors they run the plain twins
+(``swan_decode_reference``, after ``gather_pages`` for the pool).
+Arguments are checked the same way on both devices.
 """
 from __future__ import annotations
 
@@ -20,11 +24,24 @@ from typing import Dict, List, Optional, Union
 import torch
 
 from repro_torch.core.hybrid_cache import per_seq_pos
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.core.swan_attention import gather_pages
+from repro_torch.kernels.build import CudaKernel, CudaLibrary
 from repro_torch.kernels.swan_decode.ref import swan_decode_reference
 
-# the plain PyTorch version of the kernel's function
+# the plain PyTorch version of the slab kernel's function
 swan_decode_plain = swan_decode_reference
+
+
+def swan_decode_paged_plain(q, pool_k_vals, pool_k_idx, pool_v_vals,
+                            pool_v_idx, buf_k, buf_v, buf_pos, pos, sp_len,
+                            page_tab, pool_k_scale=None, pool_v_scale=None):
+    """The plain PyTorch version of the paged kernel's function: gather
+    each sequence's logical rows from the pool, then the slab twin."""
+    g = lambda x: None if x is None else gather_pages(x, page_tab)  # noqa: E731
+    return swan_decode_reference(q, g(pool_k_vals), g(pool_k_idx),
+                                 g(pool_v_vals), g(pool_v_idx), buf_k, buf_v,
+                                 buf_pos, pos, sp_len, g(pool_k_scale),
+                                 g(pool_v_scale))
 
 _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _V_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -37,14 +54,16 @@ MAX_DH = 128                             # int8 indices address dh <= 128 column
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.swan_decode_launch.argtypes = [i, i] + [p] * 13 + [i] * 7 + [p]
+    lib.swan_decode_launch.argtypes = [i, i] + [p] * 14 + [i] * 9 + [p]
     lib.swan_decode_launch.restype = i
     lib.swan_decode_error_string.argtypes = [i]
     lib.swan_decode_error_string.restype = ctypes.c_char_p
 
 
-KERNEL = CudaKernel("swan_decode",
-                    Path(__file__).with_name("csrc") / "swan_decode.cu", _bind)
+LIBRARY = CudaLibrary("swan_decode",
+                      Path(__file__).with_name("csrc") / "swan_decode.cu", _bind)
+KERNEL = CudaKernel("swan_decode", LIBRARY)                 # slab (B1)
+KERNEL_PAGED = CudaKernel("swan_decode_paged", LIBRARY)     # page pool (B2)
 
 
 def smem_bytes(G: int, dh: int, b: int) -> int:
@@ -75,20 +94,29 @@ def precheck(*, G: int, dh: int, k_max: int, b: int) -> Dict[str, object]:
 
 
 def _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
-           sp_len, k_scale, v_scale) -> None:
+           sp_len, k_scale, v_scale, page_tab=None) -> None:
+    """Validate the operands; the sparse leaves are [B,Kv,S,k] (slab) or,
+    with ``page_tab [B, Pg]``, a pool [n_pages,Kv,ps,k]."""
     B, Kv, G, dh = q.shape
-    if k_vals.dim() != 4 or k_vals.shape[:2] != (B, Kv):
-        raise ValueError(f"k_vals {tuple(k_vals.shape)} is not [B,Kv,S,k] "
-                         f"for q {tuple(q.shape)}")
-    S, k = k_vals.shape[2], k_vals.shape[3]
+    lead = (B, Kv) if page_tab is None else (k_vals.shape[0], Kv)
+    if k_vals.dim() != 4 or k_vals.shape[:2] != lead:
+        raise ValueError(f"k_vals {tuple(k_vals.shape)} is not "
+                         f"{'[B,Kv,S,k]' if page_tab is None else '[n_pages,Kv,ps,k]'}"
+                         f" for q {tuple(q.shape)}")
+    R, k = k_vals.shape[2], k_vals.shape[3]
     b = buf_k.shape[2] if buf_k.dim() == 4 else -1
-    shapes = {"k_idx": (k_idx, (B, Kv, S, k)), "v_vals": (v_vals, (B, Kv, S, k)),
-              "v_idx": (v_idx, (B, Kv, S, k)), "buf_k": (buf_k, (B, Kv, b, dh)),
+    shapes = {"k_idx": (k_idx, (*lead, R, k)), "v_vals": (v_vals, (*lead, R, k)),
+              "v_idx": (v_idx, (*lead, R, k)), "buf_k": (buf_k, (B, Kv, b, dh)),
               "buf_v": (buf_v, (B, Kv, b, dh)), "buf_pos": (buf_pos, (B, b)),
               "pos": (pos, (B,)), "sp_len": (sp_len, (B,))}
     if k_scale is not None or v_scale is not None:
-        shapes["k_scale"] = (k_scale, (B, Kv, S))
-        shapes["v_scale"] = (v_scale, (B, Kv, S))
+        shapes["k_scale"] = (k_scale, (*lead, R))
+        shapes["v_scale"] = (v_scale, (*lead, R))
+    if page_tab is not None:
+        if page_tab.dim() != 2 or page_tab.shape[1] < 1:
+            raise ValueError(f"page_tab {tuple(page_tab.shape)}: need [B, Pg] "
+                             "with Pg >= 1 (ship at least one page)")
+        shapes["page_tab"] = (page_tab, (B, page_tab.shape[1]))
     for name, (t, want) in shapes.items():
         if t is None or tuple(t.shape) != want:
             got = None if t is None else tuple(t.shape)
@@ -112,8 +140,11 @@ def _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
         raise TypeError("k_idx/v_idx must be int8")
     if buf_pos.dtype != torch.int32:
         raise TypeError("buf_pos must be int32")
+    if page_tab is not None and page_tab.dtype != torch.int32:
+        raise TypeError("page_tab must be int32")
     tensors = [q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
-               sp_len] + [t for t in (k_scale, v_scale) if t is not None]
+               sp_len] + [t for t in (k_scale, v_scale, page_tab)
+                          if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("all operands must be on q's device")
     if not all(t.is_contiguous() for t in tensors):
@@ -121,6 +152,41 @@ def _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
     errs = precheck(G=G, dh=dh, k_max=k, b=b)["errors"]
     if errs:
         raise ValueError("; ".join(errs))
+
+
+def _launch(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, buf_k,
+            buf_v, buf_pos, pos, sp_len, k_scale, v_scale,
+            page_tab) -> torch.Tensor:
+    """Launch the decode kernel on q's stream (slab when ``page_tab`` is
+    None); raises on a refused launch and counts the launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, Kv, G, dh = q.shape
+    k = k_vals.shape[3]
+    if page_tab is None:
+        S, ps, n_pages = k_vals.shape[2], 0, 0
+    else:
+        ps, n_pages = k_vals.shape[2], k_vals.shape[0]
+        S = page_tab.shape[1] * ps
+    out = torch.empty_like(q)
+    lib = kernel.lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.swan_decode_launch(
+            _Q_TYPES[q.dtype], _V_TYPES[k_vals.dtype], q.data_ptr(),
+            k_vals.data_ptr(), k_idx.data_ptr(), v_vals.data_ptr(),
+            v_idx.data_ptr(),
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
+            buf_k.data_ptr(), buf_v.data_ptr(), buf_pos.data_ptr(),
+            pos.data_ptr(), sp_len.data_ptr(),
+            None if page_tab is None else page_tab.data_ptr(), out.data_ptr(),
+            B, Kv, G, dh, S, k, buf_k.shape[2], ps, n_pages, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel.name} launch failed: "
+                           + lib.swan_decode_error_string(err).decode())
+    kernel.launches += 1
+    return out
 
 
 def swan_decode(q: torch.Tensor, k_vals: torch.Tensor, k_idx: torch.Tensor,
@@ -140,25 +206,33 @@ def swan_decode(q: torch.Tensor, k_vals: torch.Tensor, k_idx: torch.Tensor,
     if q.device.type == "cpu":
         return swan_decode_plain(q, k_vals, k_idx, v_vals, v_idx, buf_k,
                                  buf_v, buf_pos, pos, sp_len, k_scale, v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _, Kv, G, dh = q.shape
-    S, k = k_vals.shape[2], k_vals.shape[3]
-    out = torch.empty_like(q)
-    lib = KERNEL.lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.swan_decode_launch(
-            _Q_TYPES[q.dtype], _V_TYPES[k_vals.dtype], q.data_ptr(),
-            k_vals.data_ptr(), k_idx.data_ptr(), v_vals.data_ptr(),
-            v_idx.data_ptr(),
-            None if k_scale is None else k_scale.data_ptr(),
-            None if v_scale is None else v_scale.data_ptr(),
-            buf_k.data_ptr(), buf_v.data_ptr(), buf_pos.data_ptr(),
-            pos.data_ptr(), sp_len.data_ptr(), out.data_ptr(),
-            B, Kv, G, dh, S, k, buf_k.shape[2], stream)
-    if err != 0:
-        raise RuntimeError("swan_decode launch failed: "
-                           + lib.swan_decode_error_string(err).decode())
-    KERNEL.launches += 1
-    return out
+    return _launch(KERNEL, q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v,
+                   buf_pos, pos, sp_len, k_scale, v_scale, None)
+
+
+def swan_decode_paged(q: torch.Tensor, pool_k_vals: torch.Tensor,
+                      pool_k_idx: torch.Tensor, pool_v_vals: torch.Tensor,
+                      pool_v_idx: torch.Tensor, buf_k: torch.Tensor,
+                      buf_v: torch.Tensor, buf_pos: torch.Tensor,
+                      pos: Union[int, torch.Tensor],
+                      sp_len: Union[int, torch.Tensor], page_tab: torch.Tensor,
+                      pool_k_scale: Optional[torch.Tensor] = None,
+                      pool_v_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Decode attention over [paged packed sparse ‖ ring]: pool leaves
+    [n_pages,Kv,ps,k], ``page_tab [B, Pg]`` int32 (unmapped entries name
+    the trash page, hidden by ``sp_len``).  Launches the kernel for CUDA
+    tensors, runs the plain twin for CPU tensors."""
+    B = q.shape[0]
+    pos = per_seq_pos(pos, B, q.device)
+    sp_len = per_seq_pos(sp_len, B, q.device)
+    _check(q, pool_k_vals, pool_k_idx, pool_v_vals, pool_v_idx, buf_k, buf_v,
+           buf_pos, pos, sp_len, pool_k_scale, pool_v_scale, page_tab)
+    if q.device.type == "cpu":
+        return swan_decode_paged_plain(q, pool_k_vals, pool_k_idx,
+                                       pool_v_vals, pool_v_idx, buf_k, buf_v,
+                                       buf_pos, pos, sp_len, page_tab,
+                                       pool_k_scale, pool_v_scale)
+    return _launch(KERNEL_PAGED, q, pool_k_vals, pool_k_idx, pool_v_vals,
+                   pool_v_idx, buf_k, buf_v, buf_pos, pos, sp_len,
+                   pool_k_scale, pool_v_scale, page_tab)

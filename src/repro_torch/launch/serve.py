@@ -1,10 +1,17 @@
-"""Serving launcher of the port (lockstep batch): init seeded weights,
-calibrate and absorb SWAN, run batched generation.
+"""Serving launcher of the port: init seeded weights, calibrate and absorb
+SWAN, run batched generation — the lockstep ``ServeSession``, or with
+``--engine`` the continuous-batching ``ServeEngine`` (queue, slots,
+per-request k, slab or ``--paged`` cache, ``--prefill-chunk`` chunked
+concurrent prefill).
 
     python -m repro_torch.launch.serve --arch llama3-8b --swan \
         --k 64 --buffer 128 --prompt-len 2048 --tokens 64 --max-seq 4096
+    python -m repro_torch.launch.serve --arch llama3-8b --swan --k 64 \
+        --buffer 128 --prompt-len 2048 --tokens 32 --max-seq 4096 \
+        --engine --requests 8 --mixed-k --paged --prefill-chunk 256 \
+        --prefill-slots 2
 
-runs on the card; ``--smoke --device cpu`` runs the small configuration
+run on the card; ``--smoke --device cpu`` runs the small configuration
 through the plain PyTorch path on the CPU.
 """
 from __future__ import annotations
@@ -20,6 +27,7 @@ from repro_torch.kernels import KERNELS
 from repro_torch.kernels.build import build_all
 from repro_torch.launch.io import make_batch
 from repro_torch.models.registry import get_model, swan_applicable
+from repro_torch.runtime.serve_engine import Request, ServeEngine
 from repro_torch.runtime.serve_loop import ServeSession, calibrate_swan
 
 
@@ -44,7 +52,46 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous batching instead of lockstep")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="engine: number of requests (default: --batch * 2)")
+    ap.add_argument("--mixed-k", action="store_true",
+                    help="engine: cycle per-request SWAN k overrides")
+    ap.add_argument("--paged", action="store_true",
+                    help="engine+swan: paged sparse cache (memory follows "
+                         "live tokens)")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="paged: token positions per page")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="paged: physical pages in the shared pool "
+                         "(default: full reservation; smaller over-commits)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="engine: chunked prefill in power-of-two chunks "
+                         "(default: monolithic admission)")
+    ap.add_argument("--prefill-slots", type=int, default=1,
+                    help="engine: in-flight prefills advanced per step in "
+                         "one chunk dispatch (requires --prefill-chunk)")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="engine: per-step prefill token budget "
+                         "(default: prefill-slots * prefill-chunk)")
+    ap.add_argument("--pool-grow", action="store_true",
+                    help="paged: grow the pool when it runs dry instead of "
+                         "holding admissions")
+    ap.add_argument("--admission", default="fifo", choices=["fifo", "srf"],
+                    help="engine: admission policy (fifo, or "
+                         "shortest-remaining-first)")
     args = ap.parse_args(argv)
+    if args.prefill_chunk and not args.engine:
+        raise SystemExit("--prefill-chunk requires --engine")
+    if ((args.prefill_slots > 1 or args.prefill_budget is not None)
+            and not args.prefill_chunk):
+        raise SystemExit("--prefill-slots/--prefill-budget require "
+                         "--prefill-chunk")
+    if args.paged and not (args.engine and args.swan):
+        raise SystemExit("--paged requires --engine and --swan")
+    if args.pool_grow and not args.paged:
+        raise SystemExit("--pool-grow requires --paged")
 
     device = resolve_device(args.device)
     if device.type == "cuda":   # build before anything is timed
@@ -69,6 +116,10 @@ def main(argv=None):
         print(f"SWAN: k_max={swan.k_max}/{cfg.d_head} buffer={b} "
               f"mode={swan.mode} int8={swan.quantize}")
 
+    if args.engine:
+        _run_engine(cfg, params, swan, projections, args, device)
+        return
+
     sess = ServeSession(cfg, params, swan=swan, projections=projections,
                         max_seq=args.max_seq, batch=args.batch, device=device)
     prompt = make_batch(cfg, args.batch, args.prompt_len, seed=11,
@@ -86,6 +137,50 @@ def main(argv=None):
     rep = sess.cache_report()
     extra = f" ({rep['saving']:.0%} vs dense)" if "saving" in rep else ""
     print(f"cache [{rep['mode']}]: {rep['bytes'] / 1e6:.2f} MB{extra}")
+
+
+def _run_engine(cfg, params, swan, projections, args, device) -> None:
+    eng = ServeEngine(cfg, params, swan=swan, projections=projections,
+                      max_seq=args.max_seq, n_slots=args.batch,
+                      paged=args.paged, page_size=args.page_size,
+                      n_pages=args.n_pages, prefill_chunk=args.prefill_chunk,
+                      prefill_slots=args.prefill_slots,
+                      prefill_budget=args.prefill_budget,
+                      pool_grow=args.pool_grow, admission=args.admission,
+                      device=device)
+    n_req = args.requests or args.batch * 2
+    k_cycle = ([None] if (swan is None or not args.mixed_k)
+               else [swan.k_max, max(swan.k_max // 2, 1),
+                     max(swan.k_max // 4, 1)])
+    reqs = []
+    for i in range(n_req):
+        plen = max(4, args.prompt_len - 3 * (i % 4))     # mixed prompt lengths
+        toks = make_batch(cfg, 1, plen, seed=100 + i, device="cpu")["tokens"][0]
+        reqs.append(Request(
+            uid=f"req{i}", tokens=[int(t) for t in toks],
+            max_new_tokens=args.tokens, temperature=args.temperature,
+            seed=i, k=k_cycle[i % len(k_cycle)]))
+    _sync(device)
+    t0 = time.perf_counter()
+    comps = eng.run(reqs)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(c.tokens) for c in comps)
+    for c in comps[:2]:
+        print(f"{c.uid} (prompt {c.prompt_len}, k={c.k}, "
+              f"steps {c.admitted_step}->{c.finished_step}): {c.tokens}")
+    rep = eng.cache_report()
+    extra = f" ({rep['saving']:.0%} vs dense)" if "saving" in rep else ""
+    print(f"engine: {len(comps)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s, {eng.step_count} steps, dispatches "
+          f"{eng.dispatches}) on {device}")
+    print(f"cache [{rep['mode']}]: {rep['bytes'] / 1e6:.2f} MB{extra}")
+    if args.paged:
+        print(f"paged: reserved {rep['reserved_bytes'] / 1e6:.2f} MB over "
+              f"{rep['n_pages']} pages ({rep['page_size']} tok/page); "
+              f"live now {rep['live_pages']} pages / "
+              f"{rep['live_bytes'] / 1e6:.2f} MB "
+              f"(slab layout would hold {rep['slab_bytes'] / 1e6:.2f} MB)")
 
 
 if __name__ == "__main__":

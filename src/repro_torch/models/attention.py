@@ -15,6 +15,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core.hybrid_cache import kept_lane_rows
 from repro_torch.models.common import apply_rope, torch_dtype
 
 Params = Dict[str, Any]
@@ -51,32 +52,43 @@ def _expand_kv(k: torch.Tensor, group: int) -> torch.Tensor:
         B, S, Kv * group, dh)
 
 
+def _query_positions(Sq: int, q_offset, device) -> torch.Tensor:
+    """Absolute query positions [B|1, Sq]: ``q_offset`` is a scalar or
+    per-sequence [B] (each lane's chunk resumes at its own position)."""
+    off = torch.as_tensor(q_offset, device=device).reshape(-1, 1)
+    return torch.arange(Sq, device=device)[None] + off
+
+
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool) -> torch.Tensor:
-    """Plain softmax attention.  q: [B,Sq,H,dh], k/v: [B,Sk,Kv,dh]."""
+                    causal: bool, q_offset=0) -> torch.Tensor:
+    """Plain softmax attention.  q: [B,Sq,H,dh], k/v: [B,Sk,Kv,dh];
+    ``q_offset`` (scalar or [B]) shifts the causal mask."""
     B, Sq, H, dh = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
     k = _expand_kv(k, H // Kv)
     v = _expand_kv(v, H // Kv)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dh)
     if causal:
-        qp = torch.arange(Sq, device=q.device)[:, None]
-        kp = torch.arange(Sk, device=q.device)[None, :]
-        scores = scores.masked_fill(~(kp <= qp), torch.finfo(torch.float32).min)
+        qp = _query_positions(Sq, q_offset, q.device)[:, :, None]  # [B|1,Sq,1]
+        kp = torch.arange(Sk, device=q.device)[None, None, :]
+        scores = scores.masked_fill(~(kp <= qp)[:, None],
+                                    torch.finfo(torch.float32).min)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool, block: int = ATTN_BLOCK) -> torch.Tensor:
-    """Online-softmax attention over KV blocks, O(Sq·block) memory."""
+                      causal: bool, q_offset=0,
+                      block: int = ATTN_BLOCK) -> torch.Tensor:
+    """Online-softmax attention over KV blocks, O(Sq·block) memory;
+    ``q_offset`` as in ``dense_attention``."""
     B, Sq, H, dh = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
     k = _expand_kv(k, H // Kv)
     v = _expand_kv(v, H // Kv)
     scale = 1.0 / math.sqrt(dh)
     qf = q.float()
-    q_pos = torch.arange(Sq, device=q.device)
+    q_pos = _query_positions(Sq, q_offset, q.device)            # [B|1, Sq]
     m = torch.full((B, H, Sq), -math.inf, device=q.device)
     l = torch.zeros((B, H, Sq), device=q.device)
     acc = torch.zeros((B, H, Sq, dh), device=q.device)
@@ -85,10 +97,11 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vblk = v[:, start:start + block].float()
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kblk) * scale
         k_pos = start + torch.arange(kblk.shape[1], device=q.device)
-        valid = torch.ones((Sq, k_pos.shape[0]), dtype=torch.bool,
+        valid = torch.ones((1, Sq, k_pos.shape[0]), dtype=torch.bool,
                            device=q.device)
         if causal:
-            valid = k_pos[None, :] <= q_pos[:, None]
+            valid = k_pos[None, None, :] <= q_pos[:, :, None]  # [B|1,Sq,blk]
+        valid = valid[:, None]
         s = s.masked_fill(~valid, -math.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(torch.isfinite(m_new), m_new,
@@ -131,6 +144,20 @@ def dense_cache_insert_(cache: Params, k: torch.Tensor, v: torch.Tensor,
     S = k.shape[1]
     cache["k"][:, :, pos:pos + S] = k.transpose(1, 2)
     cache["v"][:, :, pos:pos + S] = v.transpose(1, 2)
+    return cache
+
+
+def dense_cache_insert_rows_(cache: Params, k: torch.Tensor,
+                             v: torch.Tensor, lane, start) -> Params:
+    """Insert chunk K/V [P, S, Kv, dh] at rows [start_p, start_p + S) of
+    batch lanes ``lane [P]``, in place (the batched chunked-prefill
+    insert); dead lanes and rows past max_seq are dropped
+    (``kept_lane_rows``)."""
+    li, ri, pi, si = kept_lane_rows(lane, start, k.shape[1],
+                                    cache["k"].shape[0], cache["k"].shape[2],
+                                    cache["k"].device)
+    for name, new in (("k", k), ("v", v)):
+        cache[name][li, :, ri] = new[pi, si].to(cache[name].dtype)
     return cache
 
 

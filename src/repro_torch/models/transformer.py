@@ -1,25 +1,32 @@
 """Decoder-only transformer LM, dense family: forward, SWAN calibration
-capture and absorption, and serving (prefill + decode over a dense or SWAN
-hybrid cache, slab layout).
+capture and absorption, and serving (prefill, batched chunked prefill and
+decode over a dense cache or a SWAN hybrid cache, slab or paged).
 
 Port of ``repro.models.transformer``.  Parameters are nested dicts with
 stacked ``[L, ...]`` layer leaves, as in the reference; its ``scan`` over
 layers is a Python loop over views ``leaf[i]``.  Serve caches are stacked
-``[L, ...]`` too and are updated IN PLACE by prefill and decode.
+``[L, ...]`` too and are updated IN PLACE by prefill, chunks and decode.
+On the card the SWAN reads of decode and chunked prefill run in the CUDA
+kernels (``repro_torch.kernels``; gate in ``kernels.dispatch``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import absorb as absorb_mod
 from repro_torch.core import hybrid_cache as hc
+from repro_torch.core import paged_cache as pc
 from repro_torch.core import swan_attention as swa
 from repro_torch.core.winnow import rotate_k, rotate_q
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.dispatch import decode_kernel_supported
-from repro_torch.kernels.swan_decode.ops import swan_decode_from_cache
+from repro_torch.kernels.dispatch import kernel_supported
+from repro_torch.kernels.swan_chunk.ops import (chunk_stats_from_pool,
+                                                chunk_stats_from_view)
+from repro_torch.kernels.swan_decode.ops import (
+    swan_decode_from_cache, swan_decode_paged_from_cache)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
                                        torch_dtype)
@@ -167,6 +174,28 @@ def init_caches(cfg, swan, batch: int, max_seq: int,
                               lead=(cfg.n_layers,))
 
 
+def init_paged_caches(cfg, swan, batch: int, max_seq: int, n_pages: int,
+                      page_size: int, device: DeviceLike = None) -> Params:
+    """Paged serve state: the sparse sides become a shared page pool
+    [L, n_pages, Kv, page_size, k]; the dense rings stay per slot.  The
+    page table is a separate operand (host-owned, ``runtime.page_pool``)."""
+    if swan is None or not swan.enabled:
+        raise ValueError("paged caches require SWAN (the sparse sides are "
+                         "what gets paged); use init_caches for dense")
+    if max_seq % page_size:
+        raise ValueError(f"max_seq={max_seq} not divisible by "
+                         f"page_size={page_size}")
+    dev = resolve_device(device)
+    L, Kv, dh, b = cfg.n_layers, cfg.n_kv_heads, cfg.d_head, swan.buffer
+    cdt = torch_dtype(cfg.dtype)
+    return {"pool": pc.init_paged_pool(cfg, swan, n_pages, page_size, dev,
+                                       lead=(L,)),
+            "buf_k": torch.zeros((L, batch, Kv, b, dh), dtype=cdt, device=dev),
+            "buf_v": torch.zeros((L, batch, Kv, b, dh), dtype=cdt, device=dev),
+            "buf_pos": torch.full((L, batch, b), -1, dtype=torch.int32,
+                                  device=dev)}
+
+
 def layer_cache(caches: Params, i: int) -> Params:
     """Layer ``i``'s cache: views, so in-place updates land in ``caches``."""
     return {k: (layer_cache(v, i) if isinstance(v, dict) else v[i])
@@ -184,25 +213,38 @@ def _k_per_layer(cfg, swan, projections) -> list:
 
 def _swan_layer_decode(lp: Params, p_qk_l: torch.Tensor, cache_l: Params,
                        cfg, swan, x: torch.Tensor, pos: torch.Tensor,
-                       k_act) -> torch.Tensor:
-    """One layer's SWAN decode: insert into the hybrid cache (in place),
-    then read it — through the CUDA kernel when the cache is on the card,
-    through the plain gather/scatter path otherwise."""
+                       k_act, page_tab: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """One layer's SWAN decode: insert into the hybrid cache (in place; the
+    slab, or the pool through ``page_tab``), then read it — through a CUDA
+    kernel when the cache is on the card, through the plain gather/scatter
+    path otherwise."""
     B = x.shape[0]
     Kv, G, dh = cfg.n_kv_heads, cfg.q_group, cfg.d_head
     q, k, v = attn.project_qkv(lp["attn"], cfg, x, pos[:, None])
     q_hat = rotate_q(q, p_qk_l, Kv)[:, 0]                        # [B,Kv,G,dh]
     k_hat = rotate_k(k, p_qk_l)                                  # [B,1,Kv,dh]
-    hc.swan_cache_insert_decode_(cache_l, swan, k_hat, v, pos, k_act=k_act)
-    if decode_kernel_supported(swan, cache_l["k"]["vals"]):
-        o = swan_decode_from_cache(q_hat, cache_l, swan, pos)
+    if page_tab is None:
+        hc.swan_cache_insert_decode_(cache_l, swan, k_hat, v, pos, k_act=k_act)
+        if kernel_supported(swan, cache_l["k"]["vals"]):
+            o = swan_decode_from_cache(q_hat, cache_l, swan, pos)
+        else:
+            o = swa.swan_decode_attention(q_hat, cache_l, swan, pos)
     else:
-        o = swa.swan_decode_attention(q_hat, cache_l, swan, pos)
+        pc.paged_insert_decode_(cache_l, swan, k_hat, v, pos, page_tab,
+                                k_act=k_act)
+        if kernel_supported(swan, cache_l["pool"]["k"]["vals"], page_tab):
+            o = swan_decode_paged_from_cache(q_hat, cache_l, swan, pos,
+                                             page_tab)
+        else:
+            o = swa.swan_decode_attention_paged(q_hat, cache_l, swan, pos,
+                                                page_tab)
     return attn.output_proj(lp["attn"], o.reshape(B, 1, Kv * G, dh))
 
 
 def _swan_layer_prefill(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
-                        x: torch.Tensor, positions, k_act) -> torch.Tensor:
+                        x: torch.Tensor, positions, k_act,
+                        true_len: Optional[int] = None) -> torch.Tensor:
     """Prefill: dense (lossless, Lemma A.1) attention on rotated q̂/k̂/v̂;
     the hybrid cache is filled (in place) for the decode steps."""
     B, S, _ = x.shape
@@ -210,50 +252,238 @@ def _swan_layer_prefill(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
     q, k, v = attn.project_qkv(lp["attn"], cfg, x, positions)
     q_hat = rotate_q(q, p_qk_l, Kv).reshape(B, S, Kv * G, dh)
     k_hat = rotate_k(k, p_qk_l)
-    hc.swan_cache_insert_prefill_(cache_l, swan, k_hat, v, k_act=k_act)
+    hc.swan_cache_insert_prefill_(cache_l, swan, k_hat, v, k_act=k_act,
+                                  true_len=true_len)
     return attn.output_proj(lp["attn"], attn.causal_attention(q_hat, k_hat, v))
 
 
 @torch.no_grad()
 def lm_prefill(p: Params, cfg, tokens: torch.Tensor, caches: Params,
-               swan=None, projections: Optional[Params] = None
+               swan=None, projections: Optional[Params] = None,
+               k_active: Optional[int] = None, true_len: Optional[int] = None
                ) -> Tuple[torch.Tensor, Params]:
     """Process the prompt [B, S], filling ``caches`` in place.  Returns
-    (last-token logits [B, 1, V], caches)."""
+    (last-token logits [B, 1, V], caches).
+
+    ``k_active`` (python int) caps the SWAN retention of the whole prompt
+    (per-request k).  ``true_len`` (python int) is the real prompt length
+    when ``tokens`` is padded to a bucket: the logits are taken at
+    true_len - 1 and the ring is anchored there."""
     x, positions = _embed(p, cfg, tokens)
     use_swan = swan is not None and swan.enabled
     k_layers = _k_per_layer(cfg, swan, projections) if use_swan else None
+    if use_swan and k_active is not None:
+        k_layers = [min(k, int(k_active)) for k in k_layers]
     for i in range(cfg.n_layers):
         lp, cache_l = layer_params(p, i), layer_cache(caches, i)
         h = apply_norm(lp["ln1"], x)
         if use_swan:
             h = _swan_layer_prefill(lp, projections["p_qk"][i], cache_l, cfg,
-                                    swan, h, positions, k_layers[i])
+                                    swan, h, positions, k_layers[i],
+                                    true_len=true_len)
         else:
             q, k, v = attn.project_qkv(lp["attn"], cfg, h, positions)
             attn.dense_cache_insert_(cache_l, k, v, 0)
             h = attn.output_proj(lp["attn"], attn.causal_attention(q, k, v))
         x = _layer_ffn(lp, cfg, x + h)
-    return _head(p, x[:, -1:]), caches
+    last = x.shape[1] if true_len is None else int(true_len)
+    return _head(p, x[:, last - 1:last]), caches
+
+
+def _swan_layer_prefill_chunk(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
+                              x: torch.Tensor, lanes, positions, k_act,
+                              page_tab: Optional[torch.Tensor] = None,
+                              prefix_len: Optional[int] = None
+                              ) -> torch.Tensor:
+    """One layer of BATCHED chunked prefill against the batched serve
+    state: gather the P lanes' rings (and slab rows), attend each lane to
+    its [winnowed sparse prefix ‖ ring ‖ chunk], commit each chunk at its
+    own offset, and write the live lanes' rings back.  Dead lanes (``slot
+    >= n_slots``) read a clamped lane and write nothing: slab rows and
+    rings are written for the live lanes only, paged writes of dead lanes
+    go to the trash page."""
+    Kv = cfg.n_kv_heads
+    q, k, v = attn.project_qkv(lp["attn"], cfg, x, positions)
+    q_hat = rotate_q(q, p_qk_l, Kv)                      # [P,S,Kv,G,dh]
+    k_hat = rotate_k(k, p_qk_l)
+    lane_ix, start, true_len = lanes["lane_ix"], lanes["start"], lanes["true_len"]
+    ring = {n: cache_l[n][lane_ix] for n in ("buf_k", "buf_v", "buf_pos")}
+    sp_len = torch.clamp(start - swan.buffer, min=0).int()
+    if page_tab is None:                                 # slab layout
+        view = dict(ring)
+        S_slab = cache_l["k"]["vals"].shape[2]
+        pl = S_slab if prefix_len is None else min(prefix_len, S_slab)
+        for n in ("k", "v"):
+            # a power-of-two prefix of the slab rows: the read follows the
+            # prompts so far, not max_seq
+            view[n] = {m: x_[:, :, :pl][lane_ix]
+                       for m, x_ in cache_l[n].items()}
+        stats = (chunk_stats_from_view(q_hat, view, sp_len)
+                 if kernel_supported(swan, view["k"]["vals"]) else None)
+        o = swa.swan_chunk_prefill_attention(q_hat, k_hat, v, view, swan,
+                                             start, sparse_stats=stats)
+        _, packed_k, packed_v, ring_new = hc.chunk_evict_winnow(
+            ring, swan, k_hat, v, start, true_len, k_act=k_act)
+        hc.write_sparse_rows_(cache_l["k"], packed_k, lanes["slot_h"],
+                              lanes["dest_h"])
+        hc.write_sparse_rows_(cache_l["v"], packed_v, lanes["slot_h"],
+                              lanes["dest_h"])
+    else:                                                # paged layout
+        page_rows = page_tab[lane_ix]                    # [P, Pg]
+        lane = dict(ring)
+        lane["pool"] = cache_l["pool"]
+        if kernel_supported(swan, cache_l["pool"]["k"]["vals"], page_rows):
+            # pool pages feed the kernel directly: no logical view
+            stats = chunk_stats_from_pool(q_hat, cache_l["pool"], sp_len,
+                                          page_rows)
+            o = swa.swan_chunk_prefill_attention(q_hat, k_hat, v, ring, swan,
+                                                 start, sparse_stats=stats)
+        else:
+            o = swa.swan_chunk_prefill_attention(
+                q_hat, k_hat, v, swa.paged_logical_view(lane, page_rows),
+                swan, start)
+        pc.paged_insert_prefill_chunk_(lane, swan, k_hat, v, start, true_len,
+                                       page_rows, k_act=k_act,
+                                       dead=lanes["dead"])
+        ring_new = {n: lane[n] for n in ("buf_k", "buf_v", "buf_pos")}
+    live, slot_live = lanes["live"], lanes["slot_live"]
+    for n in ("buf_k", "buf_v", "buf_pos"):
+        cache_l[n][slot_live] = ring_new[n][live].to(cache_l[n].dtype)
+    return attn.output_proj(lp["attn"], o)
+
+
+def _dense_layer_prefill_chunk(lp: Params, cache_l: Params, cfg,
+                               x: torch.Tensor, lanes, positions,
+                               prefix_len: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Batched chunked prefill for the dense-cache baseline: insert each
+    live lane's chunk K/V at [start_p, start_p + S) of its slot, then causal
+    attention of each chunk against its lane's first ``prefix_len`` rows
+    (rows past a lane's chunk are masked by its causal offset)."""
+    q, k, v = attn.project_qkv(lp["attn"], cfg, x, positions)
+    attn.dense_cache_insert_rows_(cache_l, k, v, lanes["slot_h"],
+                                  lanes["start_h"])
+    S_max = cache_l["k"].shape[2]
+    pl = S_max if prefix_len is None else min(prefix_len, S_max)
+    kc = cache_l["k"][:, :, :pl][lanes["lane_ix"]].transpose(1, 2)
+    vc = cache_l["v"][:, :, :pl][lanes["lane_ix"]].transpose(1, 2)
+    if kc.shape[1] > attn.DENSE_ATTN_MAX_SEQ:
+        o = attn.blocked_attention(q, kc, vc, causal=True,
+                                   q_offset=lanes["start"])
+    else:
+        o = attn.dense_attention(q, kc, vc, causal=True,
+                                 q_offset=lanes["start"])
+    return attn.output_proj(lp["attn"], o)
 
 
 @torch.no_grad()
-def lm_decode_step(p: Params, cfg, token: torch.Tensor, pos, caches: Params,
-                   swan=None, projections: Optional[Params] = None
-                   ) -> Tuple[torch.Tensor, Params]:
-    """token [B] -> (logits [B, V], caches updated in place).  ``pos`` is a
-    python int (lockstep batch) or a per-sequence [B] tensor."""
-    B = token.shape[0]
-    x = p["embed"][token.long()[:, None]].to(torch_dtype(cfg.dtype))
-    pos = hc.per_seq_pos(pos, B, x.device)
+def lm_prefill_chunk_batched(p: Params, cfg, tokens: torch.Tensor,
+                             caches: Params, slot, start, swan=None,
+                             projections: Optional[Params] = None,
+                             k_active=None, true_len=None,
+                             page_tab: Optional[torch.Tensor] = None,
+                             prefix_len: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, Params]:
+    """Advance up to P slots' prefills by one chunk EACH against the
+    engine's batched serve state (batched concurrent chunked prefill),
+    updating ``caches`` in place.
+
+    ``tokens [P, C]``: the chunks, one lane per in-flight prefill, padded
+    to a common width.  ``slot`` / ``start`` / ``true_len`` / ``k_active``
+    are per-lane [P] host arrays (the scheduler's own numbers; a tensor is
+    copied back): each lane's slot, the position of its chunk's first
+    token, its number of real chunk tokens and its retention cap.  Lanes
+    with ``slot >= n_slots`` are DEAD padding: they compute clamped
+    garbage and write nothing that a live lane can see.  With SWAN, each
+    lane sees positions [0, start) exactly as a decode step at that
+    position would (winnowed sparse prefix + dense ring), and after the
+    chunk the ring holds [start + true_len - b, start + true_len).
+    ``page_tab [n_slots, Pg]`` (a table prefix) routes the sparse reads
+    and writes through the page pool; ``prefix_len`` (python int >=
+    max(start) + C) bounds the slab/dense read.
+
+    Returns (logits at each chunk's last real token [P, V], caches); dead
+    lanes' logits are garbage the caller discards."""
+    P, S = tokens.shape
+    dev = tokens.device
     use_swan = swan is not None and swan.enabled
+    if page_tab is not None and not use_swan:
+        raise ValueError("page_tab given but SWAN disabled — only the "
+                         "sparse sides are paged")
+    n_slots = (caches["buf_pos"] if use_swan else caches["k"]).shape[1]
+    slot_h = hc.host_ints(slot)
+    start_h = np.broadcast_to(hc.host_ints(start), (P,)).copy()
+    tlen_h = (np.full((P,), S, np.int64) if true_len is None
+              else np.broadcast_to(hc.host_ints(true_len), (P,)).copy())
+    live_h = np.nonzero(slot_h < n_slots)[0]
+    lanes = {
+        "slot_h": slot_h, "start_h": start_h,
+        "dest_h": np.maximum(start_h - (swan.buffer if use_swan else 0), 0),
+        "lane_ix": torch.as_tensor(np.minimum(slot_h, n_slots - 1),
+                                   device=dev),
+        "start": torch.as_tensor(start_h, device=dev),
+        "true_len": torch.as_tensor(tlen_h, device=dev),
+        "dead": torch.as_tensor(slot_h >= n_slots, device=dev),
+        "live": torch.as_tensor(live_h, device=dev),
+        "slot_live": torch.as_tensor(slot_h[live_h], device=dev),
+    }
+    x = p["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    positions = lanes["start"][:, None] + torch.arange(S, device=dev)[None]
     k_layers = _k_per_layer(cfg, swan, projections) if use_swan else None
+    k_req = (None if k_active is None else
+             torch.as_tensor(np.broadcast_to(hc.host_ints(k_active),
+                                             (P,)).copy(), device=dev))
     for i in range(cfg.n_layers):
         lp, cache_l = layer_params(p, i), layer_cache(caches, i)
         h = apply_norm(lp["ln1"], x)
         if use_swan:
+            k_eff = (k_layers[i] if k_req is None
+                     else torch.clamp(k_req, max=k_layers[i]))
+            h = _swan_layer_prefill_chunk(
+                lp, projections["p_qk"][i], cache_l, cfg, swan, h, lanes,
+                positions, k_eff, page_tab=page_tab, prefix_len=prefix_len)
+        else:
+            h = _dense_layer_prefill_chunk(lp, cache_l, cfg, h, lanes,
+                                           positions, prefix_len=prefix_len)
+        x = _layer_ffn(lp, cfg, x + h)
+    last = torch.clamp(lanes["true_len"] - 1, min=0)
+    x = x[torch.arange(P, device=dev), last][:, None]      # last REAL token
+    return _head(p, x)[:, 0], caches
+
+
+@torch.no_grad()
+def lm_decode_step(p: Params, cfg, token: torch.Tensor, pos, caches: Params,
+                   swan=None, projections: Optional[Params] = None,
+                   k_active=None, page_tab: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Params]:
+    """token [B] -> (logits [B, V], caches updated in place).  ``pos`` is a
+    python int (lockstep batch) or a per-sequence [B] tensor; lanes with
+    pos < 0 are dead (free or mid-prefill slots: nothing of theirs
+    changes).  ``k_active``: a python int or per-sequence [B] retention
+    cap (per-request k).  ``page_tab [B, Pg]``: ``caches`` is the paged
+    layout (``init_paged_caches``) and sparse reads and writes go through
+    the shared page pool."""
+    B = token.shape[0]
+    x = p["embed"][token.long()[:, None]].to(torch_dtype(cfg.dtype))
+    pos = hc.per_seq_pos(pos, B, x.device)
+    use_swan = swan is not None and swan.enabled
+    if page_tab is not None and not use_swan:
+        raise ValueError("page_tab given but SWAN disabled — only the "
+                         "sparse sides are paged")
+    k_layers = _k_per_layer(cfg, swan, projections) if use_swan else None
+    k_req = (None if k_active is None or isinstance(k_active, int)
+             else torch.as_tensor(k_active, device=x.device))
+    for i in range(cfg.n_layers):
+        lp, cache_l = layer_params(p, i), layer_cache(caches, i)
+        h = apply_norm(lp["ln1"], x)
+        if use_swan:
+            k_eff = k_layers[i]
+            if isinstance(k_active, int):
+                k_eff = min(k_eff, k_active)
+            elif k_req is not None:
+                k_eff = torch.clamp(k_req, max=k_eff)
             h = _swan_layer_decode(lp, projections["p_qk"][i], cache_l, cfg,
-                                   swan, h, pos, k_layers[i])
+                                   swan, h, pos, k_eff, page_tab=page_tab)
         else:
             h, _ = attn.attn_decode_dense(lp["attn"], cfg, h, pos, cache_l)
         x = _layer_ffn(lp, cfg, x + h)

@@ -1,0 +1,666 @@
+"""Continuous-batching serve engine: a slot scheduler over batched caches.
+
+Port of ``repro.runtime.serve_engine`` without a mesh (one shard), without
+metrics, trace or profiler hooks, and without the JIT mechanisms (warmup,
+executable census, AOT lowering, async fetch): PyTorch runs eagerly, and
+their analogue here is CUDA-graph capture, a later step.
+
+  * a request queue (FIFO by default; ``admission="srf"`` picks the
+    shortest remaining request first) feeds ``n_slots`` cache slots;
+  * one decode dispatch per engine step advances ALL decoding slots at
+    their own positions ``pos [B]`` (free and prefilling slots idle at
+    pos = -1: their lanes compute garbage that changes nothing);
+  * finished sequences free their slot at once, and the next queued
+    request backfills it on the same step.
+
+Per-request SWAN ``k`` rides along as a per-lane ``[B]`` operand, so a batch
+mixes compression levels.  Prompts are padded to power-of-two buckets with
+the true length alongside (the reference's compile-count bound; kept so the
+two engines compute the same thing).  Greedy lanes take the device argmax;
+temperature lanes sample on the host from the lane's f32 logits with a
+``torch.Generator`` seeded from (request seed, draw index) — they cannot
+reproduce the reference's ``jax.random`` draws.
+
+Paged sparse cache (``paged=True``; SWAN only): all slots share one page
+pool per layer side, addressed through the host page table
+(``runtime.page_pool``): admission maps the prompt's pages, decode grows
+the mapping as tokens land, retirement frees pages for immediate reuse, so
+cache memory follows LIVE tokens.  An over-committed pool holds admissions
+until pages free; ``pool_grow=True`` grows the device pool instead (2x
+pages, up to the full reservation).  The paged engine gives the slab
+engine's tokens: on the card its kernels equal the slab's bit for bit.
+
+Chunked prefill (``prefill_chunk=C``, a power of two): a slot moves
+queued -> PREFILLING -> DECODING -> retired; up to ``prefill_slots``
+prefilling slots advance one chunk each per step, round-robined within the
+token budget ``prefill_budget`` (default ``prefill_slots * C``) and packed
+into ONE chunk dispatch (``lm_prefill_chunk_batched``) straight into the
+slots' lanes of the batched state.  The lane count is bucketed to a power
+of two; dead lanes park at ``slot = n_slots``.  Chunk boundaries never
+depend on the schedule, so chunked == monolithic and batched == serial,
+token for token.  Each engine step issues at most one chunk dispatch and
+one decode dispatch (``dispatches``).
+
+``cache_report()`` reports ``reserved_bytes`` (allocated now), ``live_bytes``
+(addressable by live tokens; equal to reserved on the slab) and, paged,
+``page_table_shipped_bytes`` (the table prefix a decode dispatch ships).
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import hybrid_cache as hc
+from repro_torch.core import paged_cache as pc
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.registry import get_model, swan_applicable
+from repro_torch.runtime.page_pool import PagePool, PagePoolExhausted
+from repro_torch.runtime.sampling import sample_token
+from repro_torch.runtime.serve_loop import serve_cache_report
+
+Params = Dict[str, Any]
+
+
+@dataclass
+class Request:
+    """One generation request.  ``k``: optional per-request SWAN retention
+    (<= swan.k_max); ``arrival_step``: engine step at which the request
+    becomes visible (0 = already waiting)."""
+    uid: Any
+    tokens: Sequence[int]
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    seed: int = 0
+    eos: Optional[int] = None
+    k: Optional[int] = None
+    arrival_step: int = 0
+
+
+@dataclass
+class Completion:
+    uid: Any
+    tokens: List[int]
+    prompt_len: int
+    k: Optional[int]
+    admitted_step: int
+    finished_step: int
+    first_token_step: int = -1     # engine step of the first sampled token
+
+
+@dataclass
+class _Slot:
+    """``prefilling`` (``n_prefilled`` prompt tokens in the cache, lane pos
+    = -1) -> ``decoding`` -> retired.  Monolithic admissions start at
+    ``decoding``."""
+    req: Request
+    generated: List[int] = field(default_factory=list)
+    admitted_step: int = 0
+    state: str = "decoding"
+    n_prefilled: int = 0
+    first_token_step: int = -1
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
+class ServeEngine:
+    """Continuous-batching generation over a slot-based batched cache on
+    ``device`` (the card unless ``device="cpu"``); ``params`` and
+    ``projections`` must live there."""
+
+    def __init__(self, cfg, params, swan=None, projections=None,
+                 max_seq: int = 4096, n_slots: int = 4, paged: bool = False,
+                 page_size: int = 64, n_pages: Optional[int] = None,
+                 bucket_prompts: bool = True,
+                 prefill_chunk: Optional[int] = None, prefill_slots: int = 1,
+                 prefill_budget: Optional[int] = None,
+                 pool_grow: bool = False, admission: str = "fifo",
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.api = get_model(cfg)
+        self.swan = (swan if (swan and swan.enabled and swan_applicable(cfg))
+                     else None)
+        self.projections = projections
+        self.params = params
+        self.max_seq = max_seq
+        self.n_slots = n_slots
+        if self.swan is not None:
+            self.swan.validate(cfg.d_head)
+            if projections is None:
+                raise ValueError("SWAN enabled but no projections given — "
+                                 "run calibrate_swan first")
+        if admission not in ("fifo", "srf"):
+            raise ValueError(f"admission={admission!r}: 'fifo' or 'srf'")
+        self.admission = admission
+        self.pool_grow = pool_grow
+        self._bucketing = bucket_prompts
+        self._k_fill = 0 if self.swan is None else self.swan.k_max
+
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None:
+            if prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1):
+                raise ValueError(f"prefill_chunk={prefill_chunk} must be a "
+                                 "power of two")
+            if max_seq % prefill_chunk:
+                raise ValueError(f"max_seq={max_seq} not divisible by "
+                                 f"prefill_chunk={prefill_chunk}")
+        if prefill_slots < 1:
+            raise ValueError(f"prefill_slots={prefill_slots} must be >= 1")
+        if prefill_slots > 1 and prefill_chunk is None:
+            raise ValueError("prefill_slots > 1 (batched concurrent "
+                             "prefill) requires prefill_chunk")
+        self.prefill_slots = min(prefill_slots, n_slots)
+        if prefill_budget is not None and prefill_budget < 1:
+            raise ValueError(f"prefill_budget={prefill_budget} must be >= 1")
+        if prefill_budget is not None and prefill_chunk is None:
+            raise ValueError("prefill_budget requires prefill_chunk — a "
+                             "monolithic admission has no per-step budget")
+        self.prefill_budget = (prefill_budget if prefill_budget is not None
+                               else self.prefill_slots * (prefill_chunk or 0))
+
+        self.paged = paged
+        self.pool: Optional[PagePool] = None
+        if paged:
+            if self.swan is None:
+                raise ValueError("paged=True requires SWAN: only the sparse "
+                                 "sides have a paged layout")
+            if max_seq % page_size:
+                raise ValueError(f"max_seq={max_seq} not divisible by "
+                                 f"page_size={page_size}")
+            max_pages = max_seq // page_size
+            # default pool: the full reservation (+1 trash page) rounded up
+            # to a multiple of 8 pages; a smaller n_pages over-commits
+            if n_pages is None:
+                n_pages = -(-(n_slots * max_pages + 1) // 8) * 8
+            self.pool = PagePool(n_pages, max_pages, n_slots, page_size)
+            self.state = self.api.init_paged_state(
+                cfg, self.swan, n_slots, max_seq, n_pages, page_size,
+                self.device)
+        else:
+            self.state = self.api.init_serve_state(cfg, self.swan, n_slots,
+                                                   max_seq, self.device)
+
+        self.queue: deque = deque()
+        self.slots: List[Optional[_Slot]] = [None] * n_slots
+        self.slot_pos = np.full((n_slots,), -1, np.int32)   # next decode pos
+        self.slot_k = np.full((n_slots,), self._k_fill, np.int32)
+        self.next_tok = np.zeros((n_slots,), np.int32)
+        self.step_count = 0
+        self.completions: List[Completion] = []
+        self._prefill_rr = 0            # round-robin pointer over slots
+        # device copies of page-table prefixes, keyed by width and
+        # invalidated by the pool's version counter
+        self._table_cache: Dict[int, Any] = {}
+        self.dispatches = {"prefill": 0, "chunk": 0, "decode": 0}
+
+    # ------------------------------------------------------------------
+    # Scheduling
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if len(req.tokens) + req.max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"request {req.uid}: {len(req.tokens)}+{req.max_new_tokens} "
+                f"tokens exceed max_seq={self.max_seq}")
+        if req.k is not None:
+            if self.swan is None:
+                raise ValueError(f"request {req.uid}: per-request k needs SWAN")
+            if req.k > self.swan.k_max:
+                raise ValueError(f"request {req.uid}: k={req.k} > allocated "
+                                 f"k_max={self.swan.k_max}")
+        self.queue.append(req)
+
+    @property
+    def n_active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    @property
+    def pending(self) -> int:
+        return sum(r.arrival_step <= self.step_count for r in self.queue)
+
+    @property
+    def done(self) -> bool:
+        return not self.queue and self.n_active == 0
+
+    def _sample(self, logits: torch.Tensor, req: Request, n_prev: int) -> int:
+        """Host-side sampling of one token from a [V] logits row: the first
+        argmax for greedy requests; for temperature requests a draw from a
+        generator seeded by (request seed, draw index)."""
+        if req.temperature <= 0.0:
+            return int(torch.argmax(logits.float()))
+        seed = int(np.random.SeedSequence([req.seed, n_prev])
+                   .generate_state(1)[0])
+        gen = torch.Generator().manual_seed(seed)
+        return int(sample_token(logits.float().cpu()[None], req.temperature,
+                                gen)[0])
+
+    def _lane_tokens(self, logits: torch.Tensor, picks) -> List[int]:
+        """One token per (lane, request, draw index): greedy lanes read the
+        device argmax ([N] ids to the host), temperature lanes fetch their
+        logits row only."""
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+        return [int(greedy[lane]) if req.temperature <= 0.0
+                else self._sample(logits[lane], req, draw)
+                for lane, req, draw in picks]
+
+    def _bucket_len(self, plen: int) -> int:
+        """Smallest power-of-two bucket holding ``plen`` (capped at
+        max_seq)."""
+        if not self._bucketing:
+            return plen
+        return min(_pow2(plen), self.max_seq)
+
+    def _sparse_tokens(self, pos: int) -> int:
+        """Winnowed (sparse-resident) tokens at decode position ``pos``."""
+        return max(pos + 1 - self.swan.buffer, 0)
+
+    def _page_bucket(self, slots) -> int:
+        """Power-of-two bucket of logical pages covering every mapping in
+        ``slots``: the shipped page-table prefix width."""
+        p_used = max([1] + [int(self.pool.n_mapped[i]) for i in slots])
+        return min(_pow2(p_used), self.pool.pages_per_seq)
+
+    def _decode_bucket(self) -> int:
+        dec = [i for i, s in enumerate(self.slots)
+               if s is not None and s.state == "decoding"]
+        return self._page_bucket(dec)
+
+    def page_table_shipped_bytes(self) -> int:
+        """Bytes of the page-table prefix a decode step ships right now
+        ([n_slots, bucket] int32, the bucket over DECODING slots)."""
+        return self.n_slots * self._decode_bucket() * 4
+
+    def _record_first_token(self, slot: int, tok: int) -> None:
+        s = self.slots[slot]
+        s.generated.append(tok)
+        s.first_token_step = self.step_count
+        self.next_tok[slot] = tok
+
+    def _admit(self, req: Request, slot: int) -> None:
+        k_req = self.swan.k_max if (self.swan and req.k is None) else (req.k or 0)
+        if self.prefill_chunk is not None:
+            # chunked admission claims the slot; chunks land as the
+            # round-robin reaches it.  Paged: the prompt's whole winnow need
+            # is HELD now, so a decoding slot's growth cannot starve it
+            if self.paged:
+                self.pool.reserve(slot, self.pool.pages_for(
+                    self._sparse_tokens(len(req.tokens) - 1)))
+            self.slots[slot] = _Slot(req=req, admitted_step=self.step_count,
+                                     state="prefilling")
+            self.slot_pos[slot] = -1        # dead lane until prefill done
+            self.slot_k[slot] = k_req
+            return
+        plen = len(req.tokens)
+        pad_len = self._bucket_len(plen)
+        if self.paged:
+            # the single-slot transient follows the prompt bucket (whole
+            # pages); only that page prefix is scattered into the pool
+            ps = self.pool.page_size
+            s1 = -(-pad_len // ps) * ps
+        else:
+            s1 = self.max_seq
+        state1 = self.api.init_serve_state(self.cfg, self.swan, 1, s1,
+                                           self.device)
+        toks = np.zeros((1, pad_len), np.int64)
+        toks[0, :plen] = np.asarray(req.tokens, np.int64)
+        kw = {"k_active": int(k_req)} if self.swan is not None else {}
+        logits, state1 = self.api.prefill(
+            self.params, self.cfg,
+            {"tokens": torch.as_tensor(toks, device=self.device)}, state1,
+            self.swan, self.projections,
+            true_len=plen if self._bucketing else None, **kw)
+        self.dispatches["prefill"] += 1
+        if self.paged:
+            self._ensure_pages(slot, self._sparse_tokens(plen - 1))
+            phys = torch.as_tensor(self.pool.table[slot, :s1 // ps],
+                                   device=self.device)
+            pc.paged_insert_prefill_(self.state, state1, slot, phys, ps)
+        else:
+            _insert_slot_(self.state, state1, slot)
+        self.slots[slot] = _Slot(req=req, admitted_step=self.step_count)
+        self.slot_pos[slot] = plen
+        self.slot_k[slot] = k_req
+        self._record_first_token(slot, self._sample(logits[0, -1], req, 0))
+        self._maybe_retire(slot)
+
+    def _maybe_retire(self, slot: int) -> None:
+        s = self.slots[slot]
+        done = (len(s.generated) >= s.req.max_new_tokens
+                or (s.req.eos is not None and s.generated[-1] == s.req.eos)
+                or self.slot_pos[slot] >= self.max_seq)
+        if not done:
+            return
+        self.completions.append(Completion(
+            uid=s.req.uid, tokens=list(s.generated),
+            prompt_len=len(s.req.tokens), k=s.req.k,
+            admitted_step=s.admitted_step, finished_step=self.step_count,
+            first_token_step=s.first_token_step))
+        self.slots[slot] = None
+        self.slot_pos[slot] = -1
+        self.slot_k[slot] = self._k_fill
+        self.next_tok[slot] = 0
+        if self.paged:
+            # pages return to the free list NOW: a request backfilled into
+            # this slot on the same step reuses them
+            self.pool.free_slot(slot)
+
+    def _next_request(self) -> Optional[Request]:
+        """FIFO takes the oldest arrived request; ``srf`` the smallest total
+        work (prompt + generation budget), FIFO-tiebroken."""
+        avail = [r for r in self.queue if r.arrival_step <= self.step_count]
+        if not avail:
+            return None
+        if self.admission == "srf":
+            return min(avail, key=lambda r: len(r.tokens) + r.max_new_tokens)
+        return avail[0]
+
+    def _admit_pending(self) -> None:
+        while self.n_active < self.n_slots:
+            nxt = self._next_request()
+            if nxt is None:
+                return
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            if self.paged:
+                # a request whose LIFETIME need exceeds the whole pool can
+                # never run: grow (pool_grow) or fail fast
+                lifetime = self.pool.pages_for(self._sparse_tokens(
+                    len(nxt.tokens) + nxt.max_new_tokens - 1))
+                if lifetime > self.pool.pages_per_shard - 1:
+                    if not self.pool_grow:
+                        raise PagePoolExhausted(
+                            f"request {nxt.uid} needs {lifetime} pages over "
+                            "its lifetime; each pool shard holds "
+                            f"{self.pool.pages_per_shard - 1}")
+                    self._grow_pool(lifetime + 1)
+                # over-committed pool: admit only with enough free pages for
+                # the prompt; otherwise grow, or hold until pages free
+                need = self.pool.pages_for(
+                    self._sparse_tokens(len(nxt.tokens) - 1))
+                if need > self.pool.shard_free_pages(0) and self.pool_grow:
+                    self._grow_pool(self.pool.pages_per_shard + max(need, 1))
+                if need > self.pool.shard_free_pages(0):
+                    return                  # held admission
+            slot = free[0]
+            self.queue.remove(nxt)
+            self._admit(nxt, slot)
+
+    # ------------------------------------------------------------------
+    # Paged-pool elasticity
+    # ------------------------------------------------------------------
+
+    def _ensure_pages(self, slot: int, n_tokens: int) -> None:
+        """``pool.ensure``, growing the pool first when ``pool_grow`` and
+        the pool is over-committed; otherwise ``PagePoolExhausted``."""
+        if not self.pool_grow:
+            self.pool.ensure(slot, n_tokens)
+            return
+        try:
+            self.pool.ensure(slot, n_tokens)
+        except PagePoolExhausted:
+            self._grow_pool(self.pool.pages_per_shard
+                            + self.pool.pages_for(n_tokens))
+            self.pool.ensure(slot, n_tokens)
+
+    def _grow_pool(self, min_pages: int) -> None:
+        """Grow the device pool to at least ``min_pages`` (typically 2x),
+        copying the old pages; page-table entries stay valid.  Capped at
+        the full reservation, where every admission fits."""
+        cap = self.n_slots * self.pool.pages_per_seq + 1
+        new = min(max(2 * self.pool.pages_per_shard, min_pages), cap)
+        if new <= self.pool.pages_per_shard:
+            raise PagePoolExhausted(
+                f"page pool already at full reservation "
+                f"({self.pool.pages_per_shard} pages/shard) — cannot grow")
+        extra = new - self.pool.pages_per_shard
+        for side in self.state["pool"].values():
+            for name, x in side.items():
+                pad = torch.zeros((x.shape[0], extra, *x.shape[2:]),
+                                  dtype=hc._bits(x).dtype, device=x.device)
+                side[name] = torch.cat([hc._bits(x), pad], dim=1).view(x.dtype)
+        self.pool.grow(new)
+
+    # ------------------------------------------------------------------
+    # Engine step
+    # ------------------------------------------------------------------
+
+    def _device_table(self, width: int) -> torch.Tensor:
+        """Device copy of the page table's first ``width`` columns, cached
+        per width and re-uploaded only when the host table changed."""
+        hit = self._table_cache.get(width)
+        if hit is None or hit[0] != self.pool.version:
+            tab = torch.as_tensor(
+                np.ascontiguousarray(self.pool.table[:, :width]),
+                device=self.device)
+            hit = (self.pool.version, tab)
+            self._table_cache[width] = hit
+        return hit[1]
+
+    def _select_prefills(self) -> List[int]:
+        """Round-robin up to ``prefill_slots`` PREFILLING slots within the
+        per-step token budget; each selected slot advances one FULL chunk,
+        so chunk boundaries (and tokens) never depend on the schedule."""
+        cands = [i for i in range(self.n_slots)
+                 if self.slots[i] is not None
+                 and self.slots[i].state == "prefilling"]
+        if not cands:
+            return []
+        order = sorted(cands, key=lambda j: (j - self._prefill_rr)
+                       % self.n_slots)
+        sel: List[int] = []
+        spent = 0
+        for i in order:
+            if len(sel) >= self.prefill_slots or spent >= self.prefill_budget:
+                break
+            s = self.slots[i]
+            sel.append(i)
+            spent += min(len(s.req.tokens) - s.n_prefilled, self.prefill_chunk)
+        self._prefill_rr = (sel[-1] + 1) % self.n_slots
+        return sel
+
+    def _advance_prefills(self) -> None:
+        """Advance the selected in-flight prefills by one chunk EACH in ONE
+        batched chunk dispatch.  The lane count is a power of two (dead
+        lanes park at slot = n_slots); full chunks share one width."""
+        sel = self._select_prefills()
+        if not sel:
+            return
+        n_lanes = _pow2(len(sel))
+        lens, pads = {}, []
+        for i in sel:
+            s = self.slots[i]
+            rem = len(s.req.tokens) - s.n_prefilled
+            lens[i] = min(rem, self.prefill_chunk)
+            pads.append(self.prefill_chunk if rem >= self.prefill_chunk
+                        else _pow2(lens[i]))
+        C = max(pads)
+        toks = np.zeros((n_lanes, C), np.int64)
+        slot_v = np.full((n_lanes,), self.n_slots, np.int64)
+        start_v = np.zeros((n_lanes,), np.int64)
+        tlen_v = np.ones((n_lanes,), np.int64)
+        k_v = np.full((n_lanes,), self._k_fill, np.int64)
+        for lane, i in enumerate(sel):
+            s = self.slots[i]
+            st0, t = s.n_prefilled, lens[i]
+            toks[lane, :t] = np.asarray(s.req.tokens[st0:st0 + t], np.int64)
+            slot_v[lane], start_v[lane], tlen_v[lane] = i, st0, t
+            k_v[lane] = self.slot_k[i]
+        kw: Dict[str, Any] = {}
+        if self.swan is not None:
+            kw["k_active"] = k_v
+        if self.paged:
+            for lane, i in enumerate(sel):
+                # map pages for the tokens this chunk winnows; overshoot
+                # past them lands on the trash page
+                self._ensure_pages(i, self._sparse_tokens(
+                    int(start_v[lane]) + lens[i] - 1))
+            pg = _pow2(max(1, max(int(self.pool.n_mapped[i]) for i in sel)))
+            kw["page_tab"] = self._device_table(min(pg, self.pool.pages_per_seq))
+        else:
+            kw["prefix_len"] = min(_pow2(int(start_v.max()) + C), self.max_seq)
+        logits, self.state = self.api.prefill_chunk(
+            self.params, self.cfg,
+            {"tokens": torch.as_tensor(toks, device=self.device)}, self.state,
+            slot_v, start_v, self.swan, self.projections, true_len=tlen_v,
+            **kw)
+        self.dispatches["chunk"] += 1
+        fins = []
+        for lane, i in enumerate(sel):
+            s = self.slots[i]
+            s.n_prefilled += lens[i]
+            if s.n_prefilled == len(s.req.tokens):      # prompt complete
+                fins.append((lane, i))
+        if not fins:
+            return
+        firsts = self._lane_tokens(
+            logits, [(lane, self.slots[i].req, 0) for lane, i in fins])
+        for (_, i), first in zip(fins, firsts):
+            self.slots[i].state = "decoding"
+            self.slot_pos[i] = len(self.slots[i].req.tokens)
+            self._record_first_token(i, first)
+            self._maybe_retire(i)
+
+    def step(self) -> int:
+        """One scheduler iteration: admit -> one batched chunk dispatch ->
+        one batched decode dispatch -> retire.  Returns the number of
+        sequences that finished."""
+        n_done0 = len(self.completions)
+        self._admit_pending()
+        if self.prefill_chunk is not None:
+            self._advance_prefills()
+        active = [i for i, s in enumerate(self.slots)
+                  if s is not None and s.state == "decoding"]
+        if active:
+            kw: Dict[str, Any] = {}
+            if self.swan is not None:
+                kw["k_active"] = torch.as_tensor(self.slot_k,
+                                                 device=self.device)
+            if self.paged:
+                # map the page each sequence's decode is about to winnow
+                # into, then ship a power-of-two prefix of the table
+                for i in active:
+                    self._ensure_pages(i, self._sparse_tokens(
+                        int(self.slot_pos[i])))
+                kw["page_tab"] = self._device_table(self._page_bucket(active))
+            logits, self.state = self.api.decode_step(
+                self.params, self.cfg,
+                torch.as_tensor(self.next_tok, device=self.device),
+                torch.as_tensor(self.slot_pos, device=self.device),
+                self.state, self.swan, self.projections, **kw)
+            self.dispatches["decode"] += 1
+            toks = self._lane_tokens(
+                logits, [(i, self.slots[i].req, len(self.slots[i].generated))
+                         for i in active])
+            for i, tok in zip(active, toks):
+                self.slot_pos[i] += 1
+                self.slots[i].generated.append(tok)
+                self.next_tok[i] = tok
+                self._maybe_retire(i)
+        self.step_count += 1
+        return len(self.completions) - n_done0
+
+    def run(self, requests: Optional[Sequence[Request]] = None,
+            max_steps: Optional[int] = None) -> List[Completion]:
+        """Submit ``requests`` and step until everything drains (or
+        ``max_steps``).  Returns completions in finish order."""
+        for r in requests or ():
+            self.submit(r)
+        n0 = len(self.completions)
+        steps = 0
+        while not self.done and (max_steps is None or steps < max_steps):
+            self.step()
+            steps += 1
+        return self.completions[n0:]
+
+    # ------------------------------------------------------------------
+    # Accounting
+    # ------------------------------------------------------------------
+
+    def _cache_bytes(self) -> Dict[str, Any]:
+        """The one source of cache byte accounting: ``reserved_bytes`` /
+        ``live_bytes`` (+ ``page_table_shipped_bytes`` paged), with a
+        one-entry ``shards`` breakdown (the reference's single-device
+        layout)."""
+        L = self.cfg.n_layers
+        if not self.paged:
+            # the slab commits the worst case at init: the resident state
+            # must equal the analytic layout
+            live = sum(x.numel() * x.element_size()
+                       for x in _leaves(self.state))
+            if self.swan is None:
+                reserved = L * hc.dense_cache_bytes(self.cfg, self.n_slots,
+                                                    self.max_seq)
+            else:
+                reserved = L * (hc.cache_bytes(self.cfg, self.swan,
+                                               self.n_slots, self.max_seq)
+                                + self.n_slots * self.swan.buffer * 4)
+            if reserved != live:
+                raise RuntimeError(f"slab reserved {reserved} != resident "
+                                   f"{live}")
+            return {"reserved_bytes": reserved, "live_bytes": reserved,
+                    "shards": [{"reserved_bytes": reserved,
+                                "live_bytes": reserved}]}
+        page_b = pc.page_bytes(self.cfg, self.swan, self.pool.page_size)
+        shipped = self.page_table_shipped_bytes()
+        overhead = pc.ring_bytes(self.cfg, self.swan, self.n_slots) + shipped
+        reserved = self.pool.reserved_bytes(page_b) + overhead
+        live = self.pool.live_bytes(page_b) + overhead
+        return {"reserved_bytes": reserved, "live_bytes": live,
+                "page_table_shipped_bytes": shipped,
+                "shards": [{"reserved_bytes": reserved, "live_bytes": live,
+                            "page_table_shipped_bytes": shipped,
+                            "live_pages": self.pool.live_pages}]}
+
+    def cache_report(self) -> Dict[str, Any]:
+        """Cache accounting across all slots in the config's dtypes:
+        ``reserved_bytes`` (allocated) and ``live_bytes`` (addressable by
+        live tokens), equal on the slab; paged adds the pool's page counts
+        and the shipped table prefix."""
+        rep = serve_cache_report(self.cfg, self.swan, self.n_slots,
+                                 self.max_seq)
+        acct = self._cache_bytes()
+        rep["reserved_bytes"] = acct["reserved_bytes"]
+        rep["live_bytes"] = acct["live_bytes"]
+        rep["shards"] = acct["shards"]
+        dense_phys = self.cfg.n_layers * hc.dense_cache_bytes(
+            self.cfg, self.n_slots, self.max_seq)
+        if not self.paged:
+            rep["bytes"] = acct["reserved_bytes"]
+            if self.swan is not None:
+                rep["dense_bytes"] = dense_phys
+                rep["saving"] = 1.0 - rep["bytes"] / dense_phys
+            return rep
+        rep["mode"] += "+paged"
+        rep["slab_bytes"] = self.cfg.n_layers * hc.cache_bytes(
+            self.cfg, self.swan, self.n_slots, self.max_seq)
+        rep["bytes"] = acct["live_bytes"]
+        rep["dense_bytes"] = dense_phys
+        rep["saving"] = 1.0 - acct["live_bytes"] / dense_phys
+        rep.update(page_size=self.pool.page_size, n_pages=self.pool.n_pages,
+                   live_pages=self.pool.live_pages)
+        rep["page_table_shipped_bytes"] = acct["page_table_shipped_bytes"]
+        return rep
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _insert_slot_(big: Params, one: Params, slot: int) -> None:
+    """Copy a batch=1 prefilled slab state [L, 1, ...] into lane ``slot`` of
+    the batched state [L, n_slots, ...], in place."""
+    for name, b in big.items():
+        if isinstance(b, dict):
+            _insert_slot_(b, one[name], slot)
+        else:
+            hc._bits(b)[:, slot] = hc._bits(one[name][:, 0].to(b.dtype))

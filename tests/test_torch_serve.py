@@ -107,6 +107,8 @@ def test_launcher_runs_on_cpu(capsys):
 
 
 def test_port_runs_without_jax_or_the_reference():
+    """The lockstep session and the paged, chunked engine run on the CPU
+    with neither ``jax`` nor any ``repro.`` module imported."""
     code = (
         "import sys\n"
         "from repro_torch.configs import SwanConfig, get_smoke_config\n"
@@ -121,6 +123,13 @@ def test_port_runs_without_jax_or_the_reference():
         "s = ServeSession(cfg, api.absorb(p, cfg, pj), swan=SwanConfig(k_max=8,"
         " buffer=4), projections=pj, max_seq=32, batch=2, device='cpu')\n"
         "out = s.generate(make_batch(cfg, 2, 8, device='cpu'), 4)\n"
+        "from repro_torch.runtime.serve_engine import Request, ServeEngine\n"
+        "e = ServeEngine(cfg, api.absorb(p, cfg, pj), swan=SwanConfig(k_max=8,"
+        " buffer=4), projections=pj, max_seq=32, n_slots=2, paged=True,"
+        " page_size=8, prefill_chunk=8, prefill_slots=2, device='cpu')\n"
+        "done = e.run([Request(uid=i, tokens=list(range(3, 3 + 5 * i)),"
+        " max_new_tokens=3, k=4) for i in (1, 2, 3)])\n"
+        "assert sorted(len(c.tokens) for c in done) == [3, 3, 3]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
