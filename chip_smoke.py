@@ -9,11 +9,18 @@ Phases, each of which must pass (any failure exits non-zero):
 2. build    — every CUDA kernel of the port, built from the sources in this
               checkout (one nvcc per source, all started together).
 3. kernels  — each kernel (slab and paged decode, slab and paged chunk
-              stats) against its plain PyTorch version on the card, at the
-              shapes the serve path gives it, for every value type it
-              takes; paged == slab bit for bit; its median time beside the
-              plain version's, a one-call PyTorch yardstick
-              (``library_ms``) and the bound.
+              stats, flash prefill, fused winnowing) against its plain
+              PyTorch version on the card, at the shapes its main paths
+              give it (the bench's k's, page buckets and full prefixes
+              included), for every value type it takes; paged == slab bit
+              for bit; winnowing bit for bit under a signed-permutation
+              rotation; its median time beside the plain version's, a
+              PyTorch yardstick (``library_ms``) and the bound (the port's
+              roofline: ``repro_torch/analysis/roofline.py``).
+   bench    — the kernel microbenchmark
+              (``repro_torch.benchmarks.bench_kernels.run()``) at full
+              llama3-8b width: every kernel launched, every roofline row
+              finite and positive (launch counts zeroed just before).
 4. serve    — full-width llama3-8b (bf16, seeded random weights) served
               through the lockstep SWAN path: calibrate, absorb,
               ``ServeSession.generate``.  The kernel launch counts are zeroed
@@ -30,7 +37,8 @@ Phases, each of which must pass (any failure exits non-zero):
 
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
-that ran the kernel, ``launches_by_path`` per path), and the result line
+that ran the kernel — the bench, the lockstep serve, the engines — and
+``launches_by_path`` per path), and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -46,11 +54,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
-L2_FLUSH_BYTES = 256 << 20       # > the 50 MB L2: each timed launch starts cold
-
 # the serve phase's shapes (llama3-8b, SwanConfig(k_max=64, buffer=128))
 B, KV, G, DH, K, BUF, S = 4, 8, 4, 128, 64, 128, 4096
 PROMPT, NEW_TOKENS = 2048, 64
@@ -65,22 +68,22 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, reps: int, flush=None) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events),
-    with the L2 cache flushed before each launch when ``flush`` is given."""
+def bound_of(label, ms, nbytes, flops):
+    """The port's roofline row for a launch of ``ms`` that moves ``nbytes``
+    device bytes and does ``flops`` operations: (bound ms, "bytes" or
+    "operations")."""
+    from repro_torch.analysis.roofline import roofline_row
+    row = roofline_row(label, ms * 1e3, nbytes, flops)
+    return row["floor_us"] / 1e3, ("bytes" if row["bound"] == "memory"
+                                   else "operations")
+
+
+def flush_buffer():
+    """A device buffer larger than L2: zeroing it before a timed launch
+    makes that launch start cold."""
     import torch
-    pairs = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        s, e = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    from repro_torch.benchmarks.common import L2_FLUSH_BYTES
+    return torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -97,15 +100,16 @@ def ring_positions(pos, b):
     return bp.cuda()
 
 
-def decode_inputs(kind: str, pos, gen):
-    """Operands of one decode read at the serve shapes.  kind: value storage
-    (bf16 / int8 / fp8 with bf16 q, or f32 throughout)."""
+def decode_inputs(kind: str, pos, gen, k=K):
+    """Operands of one decode read at the serve shapes, ``k`` packed entries
+    per row.  kind: value storage (bf16 / int8 / fp8 with bf16 q, or f32
+    throughout)."""
     import torch
     qdt = torch.float32 if kind == "f32" else torch.bfloat16
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     idx = lambda: torch.rand((B, KV, S, DH), generator=gen, device=dev
-                             ).argsort(-1)[..., :K].to(torch.int8)
+                             ).argsort(-1)[..., :k].to(torch.int8)
     a = {"q": rnd(B, KV, G, DH).to(qdt), "k_idx": idx(), "v_idx": idx(),
          "buf_k": rnd(B, KV, BUF, DH).to(qdt), "buf_v": rnd(B, KV, BUF, DH).to(qdt),
          "buf_pos": ring_positions(pos, BUF),
@@ -113,13 +117,13 @@ def decode_inputs(kind: str, pos, gen):
     a["sp_len"] = torch.clamp(a["pos"] + 1 - BUF, min=0).to(torch.int32)
     for s in "kv":
         if kind == "int8":
-            a[f"{s}_vals"] = torch.randint(-127, 128, (B, KV, S, K), generator=gen,
+            a[f"{s}_vals"] = torch.randint(-127, 128, (B, KV, S, k), generator=gen,
                                            device=dev).to(torch.int8)
             a[f"{s}_scale"] = rnd(B, KV, S).abs() * 0.05 + 0.01
         elif kind == "fp8":
-            a[f"{s}_vals"] = rnd(B, KV, S, K).to(torch.float8_e4m3fn)
+            a[f"{s}_vals"] = rnd(B, KV, S, k).to(torch.float8_e4m3fn)
         else:
-            a[f"{s}_vals"] = rnd(B, KV, S, K).to(qdt)
+            a[f"{s}_vals"] = rnd(B, KV, S, k).to(qdt)
     return a
 
 
@@ -135,8 +139,8 @@ def call(fn, a):
 def decode_bytes_flops(a):
     """Bytes the function must move (each input once, the output once;
     sparse rows counted only below sp_len) and its float operations."""
-    rows = int(a["sp_len"].sum()) * KV
-    per_row = 2 * K * (a["k_vals"].element_size() + 1)
+    rows, k = int(a["sp_len"].sum()) * KV, a["k_vals"].shape[-1]
+    per_row = 2 * k * (a["k_vals"].element_size() + 1)
     if "k_scale" in a:
         per_row += 2 * 4
     ring = sum(a[n].numel() * a[n].element_size()
@@ -144,7 +148,7 @@ def decode_bytes_flops(a):
     qo = 2 * a["q"].numel() * a["q"].element_size()
     valid_slots = int(((a["buf_pos"] >= 0)
                        & (a["buf_pos"] <= a["pos"][:, None])).sum()) * KV
-    flops = 4 * G * (rows * K + valid_slots * DH)
+    flops = 4 * G * (rows * k + valid_slots * DH)
     return rows * per_row + ring + qo + 8 * B, flops
 
 
@@ -180,6 +184,17 @@ def sdpa_yardstick(a):
     return fn, fn().reshape(B, KV, G, DH)
 
 
+def bench_shapes():
+    """The kernel bench's full-width shapes (its decode k's and page
+    buckets are checked here too)."""
+    from repro_torch.benchmarks.bench_kernels import shapes
+    sh = shapes(smoke=False)
+    check(sh.page_size == PS and sh.dec_S == S and sh.dec_buffer == BUF
+          and sh.chunk_S == CS and sh.chunk_k == K,
+          "the bench's shapes left the ones checked here")
+    return sh
+
+
 def kernel_phase():
     import torch
     from repro_torch.kernels.swan_decode.swan_decode import (swan_decode,
@@ -189,32 +204,35 @@ def kernel_phase():
     cases = {
         "sp_len=0, ring part filled": [0, 5, 60, BUF - 1],
         "per-sequence pos": [PROMPT + NEW_TOKENS - 2, 1000, 3000, S - 7],
+        "bench pos (sp_len 3960)": [S - 9] * B,
         "full-length prefix": [S + BUF - 1] * B,
     }
     max_err = {}
-    for kind in ("bf16", "int8", "fp8", "f32"):
-        for case, pos in cases.items():
-            a = decode_inputs(kind, pos, gen)
-            got = call(swan_decode, a).float()
-            want = call(swan_decode_plain, a).float()
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            bad = err > tol[kind] * (1 + want.abs())
-            log(f"  swan_decode[{kind:4s}] {case:27s} max_abs_err "
-                f"{err.max().item():.3e} (tol {tol[kind]:g} abs+rel)")
-            check(bool(torch.isfinite(got).all()) and not bool(bad.any()),
-                  f"swan_decode[{kind}] {case}: kernel disagrees with plain")
-            max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
+    for k in sorted({K, *bench_shapes().dec_ks}):
+        for kind in ("bf16", "int8", "fp8", "f32"):
+            for case, pos in cases.items():
+                a = decode_inputs(kind, pos, gen, k)
+                got = call(swan_decode, a).float()
+                want = call(swan_decode_plain, a).float()
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                bad = err > tol[kind] * (1 + want.abs())
+                log(f"  swan_decode[{kind:4s}] k={k:2d} {case:27s} max_abs_err "
+                    f"{err.max().item():.3e} (tol {tol[kind]:g} abs+rel)")
+                check(bool(torch.isfinite(got).all()) and not bool(bad.any()),
+                      f"swan_decode[{kind}] k={k} {case}: kernel disagrees "
+                      "with plain")
+                max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
 
     # timing at the serve phase's last decode step (lockstep, bf16 values)
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    from repro_torch.benchmarks.common import time_ms
+    flush = flush_buffer()
     rows = {}
     for kind in ("bf16", "int8", "fp8"):
         a = decode_inputs(kind, [PROMPT + NEW_TOKENS - 2] * B, gen)
         nbytes, flops = decode_bytes_flops(a)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-        bound = max(t_bytes, t_ops) * 1e3
         ms = time_ms(lambda: call(swan_decode, a), 50, flush)
+        bound, by = bound_of(f"swan_decode[{kind}]", ms, nbytes, flops)
         plain_ms = time_ms(lambda: call(swan_decode_plain, a), 10, flush)
         lib_fn, lib_out = sdpa_yardstick(a)
         lib_err = (lib_out.float() - call(swan_decode_plain, a).float()).abs().max()
@@ -225,8 +243,7 @@ def kernel_phase():
             f"{lib_err.item():.2e}), bound {bound:.4f} ms ({nbytes} B, "
             f"{100 * bound / ms:.1f}% of bound)")
         rows[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "library_ms": lib_ms}
+                      "bound_by": by, "library_ms": lib_ms}
     del flush
     return max_err, rows
 
@@ -279,16 +296,16 @@ def page_out(a, sp, gen, names, lanes, pg=PG, n_pages=N_PAGES):
     return pool, tab.cuda()
 
 
-def timed_rows(label, fn, plain_fn, lib_fn, nbytes, flops, flush):
+def timed_rows(label, fn, plain_fn, lib_fn, nbytes, flops, flush,
+               lib_label="sdpa (expansion excluded)"):
     """Median kernel, plain and library times (ms) and the bound."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    bound = max(t_bytes, t_ops) * 1e3
+    from repro_torch.benchmarks.common import time_ms
     ms = time_ms(fn, 30, flush)
+    bound, by = bound_of(label, ms, nbytes, flops)
     plain_ms = time_ms(plain_fn, 5, flush)
     lib_ms = time_ms(lib_fn, 10, flush)
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{lib_ms:.4f} ms (expansion excluded), bound {bound:.4f} ms by {by} "
+    log(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_label} "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms by {by} "
         f"({nbytes} B, {flops:.3e} op; {100 * bound / ms:.2f}% of bound)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms}
@@ -296,40 +313,56 @@ def timed_rows(label, fn, plain_fn, lib_fn, nbytes, flops, flush):
 
 def paged_decode_phase():
     """B2 against its plain twin and, bit for bit, against B1 on the same
-    logical rows; then its time at the serve shape."""
+    logical rows, at the engine's pool and at the bench's k's and page
+    buckets; then its time at the serve shape."""
     import torch
     from repro_torch.kernels.swan_decode.swan_decode import (
         swan_decode, swan_decode_paged, swan_decode_paged_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
     tol = {"bf16": 1e-2, "int8": 1e-2, "fp8": 1e-2}
     names = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
+    max_err, rows = {}, {}
+
+    def paged_case(kind, case, sp, k=K, pg=PG, n_pages=N_PAGES):
+        pos = [n + BUF - 1 if n else 60 for n in sp]
+        a = decode_inputs(kind, pos, gen, k)
+        pool, tab = page_out(a, sp, gen, [n for n in names if n in a], B,
+                             pg=pg, n_pages=n_pages)
+        pargs = ([a["q"], pool["k_vals"], pool["k_idx"], pool["v_vals"],
+                  pool["v_idx"]] + [a[n] for n in ARGS[5:]] + [tab])
+        pkw = {"pool_k_scale": pool.get("k_scale"),
+               "pool_v_scale": pool.get("v_scale")}
+        got = swan_decode_paged(*pargs, **pkw)
+        want = swan_decode_paged_plain(*pargs, **pkw).float()
+        slab = call(swan_decode, a)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        same = torch.equal(got, slab)
+        log(f"  swan_decode_paged[{kind:4s}] k={k} {pg} pages/seq, {n_pages} "
+            f"in the pool, {case}: max_abs_err {err.max().item():.3e} (tol "
+            f"{tol[kind]:g} abs+rel); == swan_decode bit for bit: {same}")
+        check(bool(torch.isfinite(got).all())
+              and not bool((err > tol[kind] * (1 + want.abs())).any()),
+              f"swan_decode_paged[{kind}] k={k} {case}: kernel disagrees with plain")
+        check(same, f"swan_decode_paged[{kind}] k={k} {case}: != swan_decode")
+        max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
+        return a, pargs, pkw, tab
+
+    # the bench's operands: each of its k's and page buckets (pb pages per
+    # sequence, a pool of B·pb + 1 pages), every bucket full
+    sh = bench_shapes()
+    for k in sh.dec_ks:
+        for pb in sh.page_buckets:
+            paged_case("bf16", f"bench, sp_len {pb * PS}", [pb * PS] * B, k,
+                       pb, B * pb + 1)
+            paged_case("bf16", "sp_len 0 / mid-page / full / 1983",
+                       [0, 1000, pb * PS, 1983], k, pb, B * pb + 1)
     sp_cases = {"sp_len 0 / mid-page / full / 1983": [0, 1000, S, 1983],
                 "serve shape, sp_len 1983": [1983] * B}
-    max_err, rows = {}, {}
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer()
     for kind in ("bf16", "int8", "fp8"):
         for case, sp in sp_cases.items():
-            pos = [n + BUF - 1 if n else 60 for n in sp]
-            a = decode_inputs(kind, pos, gen)
-            pool, tab = page_out(a, sp, gen, [n for n in names if n in a], B)
-            pargs = ([a["q"], pool["k_vals"], pool["k_idx"], pool["v_vals"],
-                      pool["v_idx"]] + [a[n] for n in ARGS[5:]] + [tab])
-            pkw = {"pool_k_scale": pool.get("k_scale"),
-                   "pool_v_scale": pool.get("v_scale")}
-            got = swan_decode_paged(*pargs, **pkw)
-            want = swan_decode_paged_plain(*pargs, **pkw).float()
-            slab = call(swan_decode, a)
-            torch.cuda.synchronize()
-            err = (got.float() - want).abs()
-            same = torch.equal(got, slab)
-            log(f"  swan_decode_paged[{kind:4s}] {case}: max_abs_err "
-                f"{err.max().item():.3e} (tol {tol[kind]:g} abs+rel); "
-                f"== swan_decode bit for bit: {same}")
-            check(bool(torch.isfinite(got).all())
-                  and not bool((err > tol[kind] * (1 + want.abs())).any()),
-                  f"swan_decode_paged[{kind}] {case}: kernel disagrees with plain")
-            check(same, f"swan_decode_paged[{kind}] {case}: != swan_decode")
-            max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
+            a, pargs, pkw, tab = paged_case(kind, case, sp)
             if kind == "bf16" and case.startswith("serve"):
                 nbytes, flops = decode_bytes_flops(a)
                 nbytes += tab.numel() * 4
@@ -409,8 +442,9 @@ def chunk_phase():
     tol = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4, "fp8": 1e-4}
     names = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
     cases = {"sp_len 1000 | 1920": [1000, 1920], "sp_len 0 | 1000": [0, 1000],
-             "sp_len 1920 | dead lane": [1920, 0]}
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+             "sp_len 1920 | dead lane": [1920, 0],
+             "bench, full prefix": [CS, CS]}
+    flush = flush_buffer()
     max_err, rows = {}, {}
     for kind in ("bf16", "int8", "fp8", "f32"):
         for case, sp in cases.items():
@@ -466,6 +500,194 @@ def chunk_phase():
                     nbytes + tab.numel() * 4, flops, flush)
     del flush
     return max_err, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (cont.): flash_attention (B5), swan_prune (B6)
+# ---------------------------------------------------------------------------
+
+# B5 at the bench's prefill shape: 4 sequences of 2048 tokens, 32/8 heads
+FB, FS, FH = 4, 2048, 32
+F_CASES = ((FS, FS), (384, 512), (512, 384))     # (Sq, Sk); block 128
+BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-3              # one bf16 rounding step
+
+
+def flash_phase():
+    """B5 against its plain twin (the TPU kernel's top-left causal mask) at
+    Sq == Sk and Sq != Sk, causal and full, f32 (2e-5 abs) and bf16 (one
+    rounding step); then its time at the bench shape beside one SDPA call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.kernels.flash_prefill.flash_prefill import (
+        flash_attention, flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    max_err = {}
+    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for causal in (True, False):
+            for Sq, Sk in F_CASES:
+                q = rnd(FB, Sq, FH, DH).to(dt)
+                k, v = rnd(FB, Sk, KV, DH).to(dt), rnd(FB, Sk, KV, DH).to(dt)
+                got = flash_attention(q, k, v, causal, 128, 128)
+                want = flash_attention_plain(q, k, v, causal).float()
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs()
+                ok = (bool((err <= 2e-5).all()) if kind == "f32" else
+                      bool((err <= BF16_ATOL + BF16_RTOL * want.abs()).all()))
+                log(f"  flash_attention[{kind:4s}] {'causal' if causal else 'full':6s}"
+                    f" Sq={Sq} Sk={Sk}: max_abs_err {err.max().item():.3e} "
+                    f"({'2e-5 abs' if kind == 'f32' else 'one bf16 step'})")
+                check(bool(torch.isfinite(got).all()) and ok,
+                      f"flash_attention[{kind}] causal={causal} Sq={Sq} Sk={Sk}: "
+                      "kernel disagrees with plain")
+                max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
+
+    # timing at the bench shape (bf16, causal, Sq = Sk = 2048)
+    q = rnd(FB, FS, FH, DH).bfloat16()
+    k, v = rnd(FB, FS, KV, DH).bfloat16(), rnd(FB, FS, KV, DH).bfloat16()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = (lib_fn().transpose(1, 2).float()
+               - flash_attention_plain(q, k, v).float()).abs().max().item()
+    log(f"  sdpa yardstick vs plain: max_abs_err {lib_err:.3e}")
+    nbytes = rl.flash_kernel_bytes(B=FB, H=FH, Kv=KV, Sq=FS, Sk=FS, dh=DH,
+                                   dtype_bytes=2)
+    flops = rl.flash_kernel_flops(B=FB, H=FH, Sq=FS, Sk=FS, dh=DH)
+    flush = flush_buffer()
+    row = timed_rows(f"flash_attention[bf16] causal B={FB} Sq=Sk={FS} H={FH} Kv={KV}",
+                     lambda: flash_attention(q, k, v),
+                     lambda: flash_attention_plain(q, k, v), lib_fn, nbytes,
+                     flops, flush, lib_label="sdpa (is_causal, enable_gqa)")
+    del flush
+    return max_err, row
+
+
+# B6 at the bench's winnowing shape: 4 x 8 heads x 2048 vectors of 128
+PB_, PS_, PK_ = 4, 2048, 64
+
+
+def prune_inputs(dt, gen, cpu_gen):
+    """(x with distinct magnitudes in every vector, a signed permutation P,
+    x from a normal, a random orthogonal P); P f32."""
+    import torch
+    perm = torch.stack([torch.randperm(DH, generator=cpu_gen) for _ in range(KV)])
+    sign = torch.randint(0, 2, (KV, DH), generator=cpu_gen).float() * 2 - 1
+    p_perm = torch.zeros(KV, DH, DH)
+    p_perm.scatter_(2, perm[:, :, None], sign[:, :, None])     # P[j, d, perm[d]]
+    a = torch.randn((KV, DH, DH), generator=cpu_gen)
+    qm, r = torch.linalg.qr(a)
+    p_orth = qm * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None]
+    mags = torch.rand((PB_, KV, PS_, DH), generator=gen, device="cuda").argsort(-1) + 1
+    signs = torch.randint(0, 2, mags.shape, generator=gen, device="cuda") * 2 - 1
+    x_distinct = (mags * signs).float() / 32                # exact in bf16
+    x_normal = torch.randn((PB_, KV, PS_, DH), generator=gen, device="cuda")
+    return (x_distinct.to(dt), p_perm.cuda(), x_normal.to(dt),
+            p_orth.contiguous().cuda())
+
+
+def prune_phase():
+    """B6 against its plain twin: bit for bit under a signed-permutation P
+    (every x̂ exact in any summation order) with distinct magnitudes; under
+    a random orthogonal P, idx equal on every vector whose twin-side gaps
+    between consecutive sorted |x̂| (positions 0..k) exceed 1e-5·max|x̂|,
+    the others counted, and vals within 2e-5 (f32) or one bf16 rounding
+    step where idx agree.  Then its time at the bench shape."""
+    import torch
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.device import f32_matmul
+    from repro_torch.kernels.swan_prune.swan_prune import (swan_prune,
+                                                           swan_prune_plain)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cpu_gen = torch.Generator().manual_seed(4)
+    max_err = {}
+    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x_d, p_perm, x_n, p_orth = prune_inputs(dt, gen, cpu_gen)
+        with f32_matmul():
+            srt = torch.sort(torch.einsum("bjsd,jde->bjse", x_n.float(), p_orth
+                                          ).abs(), dim=-1, descending=True).values
+        for k in (1, PK_, DH):
+            got = swan_prune(x_d, p_perm, k)
+            want = swan_prune_plain(x_d, p_perm, k)
+            torch.cuda.synchronize()
+            exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            check(exact, f"swan_prune[{kind}] k={k}: signed permutation not bit-equal")
+            vals, idx = swan_prune(x_n, p_orth, k)
+            wv, wi = swan_prune_plain(x_n, p_orth, k)
+            torch.cuda.synchronize()
+            n = min(k, DH - 1)
+            clear = ((srt[..., :n] - srt[..., 1:n + 1]).amin(-1)
+                     > 1e-5 * srt[..., 0])
+            same = (idx == wi).all(-1)
+            err = (vals.float() - wv.float()).abs()[same]
+            ok_vals = (bool((err <= 2e-5).all()) if kind == "f32" else bool(
+                (err <= 1e-6 + BF16_RTOL * wv.float().abs()[same]).all()))
+            log(f"  swan_prune[{kind:4s}] k={k:3d}: signed permutation == plain "
+                f"bit for bit: {exact}; random orthogonal P: idx equal on "
+                f"{int(same.sum())} of {same.numel()} vectors, {int((~clear).sum())}"
+                f" near-tie vectors (gap <= 1e-5 max|x̂|), {int((~same & clear).sum())}"
+                f" clear vectors differ; vals max_abs_err {err.max().item():.3e}")
+            check(bool((same | ~clear).all()),
+                  f"swan_prune[{kind}] k={k}: idx differ off near-ties")
+            check(ok_vals and bool(torch.isfinite(vals).all()),
+                  f"swan_prune[{kind}] k={k}: vals disagree with plain")
+            max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
+
+    # timing at the bench shape (bf16 x, f32 P, k = 64)
+    x, p = x_n, p_orth
+
+    def lib_fn():       # matmul, topk, gather (+ abs and casts)
+        xh = torch.matmul(x.float(), p)
+        i = xh.abs().topk(PK_, dim=-1).indices
+        return torch.gather(xh, -1, i).to(x.dtype), i.to(torch.int8)
+    nbytes = rl.swan_prune_kernel_bytes(B=PB_, Kv=KV, S=PS_, dh=DH, k_max=PK_,
+                                        x_bytes=2)
+    flops = rl.swan_prune_kernel_flops(B=PB_, Kv=KV, S=PS_, dh=DH)
+    flush = flush_buffer()
+    row = timed_rows(f"swan_prune[bf16] B={PB_} Kv={KV} S={PS_} k={PK_}",
+                     lambda: swan_prune(x, p, PK_),
+                     lambda: swan_prune_plain(x, p, PK_), lib_fn, nbytes,
+                     flops, flush,
+                     lib_label="3 library calls (matmul, topk, gather; + abs, casts)")
+    del flush
+    return max_err, row
+
+
+# ---------------------------------------------------------------------------
+# phase: the kernel microbenchmark at full width
+# ---------------------------------------------------------------------------
+
+def bench_phase(kernels):
+    """``repro_torch.benchmarks.bench_kernels.run()`` at full llama3-8b
+    width on the card: every roofline row finite and positive, every kernel
+    launched (counts zeroed just before, read just after)."""
+    import math
+    import os
+    import torch
+    os.environ["REPRO_BENCH_OUT"] = str(Path(__file__).resolve().parent
+                                        / "build" / "bench_out")
+    from repro_torch.benchmarks.bench_kernels import run
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = run()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    rows = rec.extra["roofline"]
+    for r in rows:
+        log(f"  roofline {r['name']}: {r['us_per_call']:.2f} us, floor "
+            f"{r['floor_us']:.2f} us ({r['bound']}), "
+            f"{100 * r['achieved_fraction']:.2f}% of floor")
+    log(f"  bench: {len(rows)} roofline rows in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    check(all(math.isfinite(r[f]) and r[f] > 0 for r in rows
+              for f in ("us_per_call", "floor_us", "achieved_fraction")),
+          "a roofline row is not finite and positive")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel did not run on the bench path: {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -851,8 +1073,12 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
                          "src/repro/kernels/flash_prefill/swan_chunk.py:196"),
     "swan_chunk_stats_paged": ("src/repro_torch/kernels/swan_chunk/csrc/swan_chunk.cu",
                                "src/repro/kernels/flash_prefill/swan_chunk.py:241"),
+    "flash_attention": ("src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
+                        "src/repro/kernels/flash_prefill/flash_prefill.py:113"),
+    "swan_prune": ("src/repro_torch/kernels/swan_prune/csrc/swan_prune.cu",
+                   "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
-PHASES = ("kernels", "serve", "exact", "engine", "chunk_exact")
+PHASES = ("kernels", "bench", "serve", "exact", "engine", "chunk_exact")
 
 
 def main(argv=None) -> int:
@@ -911,6 +1137,18 @@ def main(argv=None) -> int:
         e, r = chunk_phase()
         rows.update(r)
         err["swan_chunk_stats"] = err["swan_chunk_stats_paged"] = e["bf16"]
+        log(f"[kernels] flash_attention vs plain (B={FB} H={FH} Kv={KV} dh={DH}; "
+            f"(Sq, Sk) in {F_CASES}; causal and full; f32 and bf16)")
+        e, rows["flash_attention"] = flash_phase()
+        err["flash_attention"] = e["bf16"]
+        log(f"[kernels] swan_prune vs plain (B={PB_} Kv={KV} S={PS_} dh={DH}; "
+            f"k in (1, {PK_}, {DH}); f32 and bf16)")
+        e, rows["swan_prune"] = prune_phase()
+        err["swan_prune"] = e["bf16"]
+    if "bench" in phases:
+        log("[bench] repro_torch.benchmarks.bench_kernels at full llama3-8b "
+            "width (bf16)")
+        record("bench", bench_phase(KERNELS))
     model = full_model() if {"serve", "engine"} & set(phases) else None
     if "serve" in phases:
         log("[serve] llama3-8b, SWAN k=64 b=128, lockstep ServeSession")

@@ -1,0 +1,155 @@
+"""Shared benchmark infrastructure (port of the timing and record part of
+``benchmarks/common.py``, :119-215).
+
+* ``timeit_call`` — microbenchmark helper returning us per call.  A call
+  whose result lies on the card is timed with CUDA events: the median
+  over the launches, the L2 cache flushed before each one (``time_ms``);
+  a CPU result with ``perf_counter``.
+* ``bench_record`` / ``BenchRecorder`` — machine-readable run artifacts:
+  a benchmark writes ``BENCH_<name>.json`` (CSV rows, gate results, torch
+  version, and the card's name or ``cpu``) into ``$REPRO_BENCH_OUT``
+  (default ``bench_out/``).
+
+The reference's ``trained_tiny_lm`` and NLL helpers wait for the port's
+training slice.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import sys
+import time
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+L2_FLUSH_BYTES = 256 << 20       # > the H100's 50 MB L2: each launch starts cold
+
+
+def time_ms(fn: Callable[[], Any], reps: int,
+            flush: Optional[torch.Tensor] = None) -> float:
+    """Median device time in ms of ``fn`` over ``reps`` launches (CUDA
+    events), with the L2 cache flushed before each launch when ``flush``
+    (a device buffer larger than L2) is given."""
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _on_cuda(out) -> bool:
+    if isinstance(out, torch.Tensor):
+        return out.is_cuda
+    if isinstance(out, (tuple, list)):
+        return any(_on_cuda(o) for o in out)
+    return False
+
+
+def timeit_call(fn, *args, iters: int = 20, warmup: int = 3) -> float:
+    """us per call of ``fn(*args)``: on the card the median of ``iters``
+    CUDA-event timings with L2 flushed, on the CPU the mean wall time."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    if _on_cuda(out):
+        torch.cuda.synchronize()
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                            device=torch.cuda.current_device())
+        return time_ms(lambda: fn(*args), iters, flush) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def emit(name: str, us_per_call: float, derived: str) -> None:
+    """CSV row in the ``name,us_per_call,derived`` format.  Also recorded
+    into the active :class:`BenchRecorder`, if any."""
+    print(f"{name},{us_per_call:.1f},{derived}")
+    if _ACTIVE is not None:
+        _ACTIVE.rows.append({"name": name,
+                             "us_per_call": float(us_per_call),
+                             "derived": derived})
+
+
+# ---------------------------------------------------------------------------
+# Machine-readable benchmark artifacts
+# ---------------------------------------------------------------------------
+
+_ACTIVE: Optional["BenchRecorder"] = None
+
+
+class BenchRecorder:
+    """Collects one benchmark's CSV rows and gate verdicts for the
+    ``BENCH_<name>.json`` artifact."""
+
+    def __init__(self, name: str, device: torch.device):
+        self.name = name
+        self.device = device
+        self.rows: List[Dict[str, Any]] = []
+        self.gates: List[Dict[str, Any]] = []
+        self.extra: Dict[str, Any] = {}
+
+    def gate(self, name: str, passed: bool, detail: str = "") -> None:
+        """Record a pass/fail gate, THEN assert it: a failing gate still
+        lands in the JSON artifact (written in ``bench_record``'s finally
+        block)."""
+        self.gates.append({"name": name, "passed": bool(passed),
+                           "detail": detail})
+        assert passed, f"gate {name}: {detail}"
+
+    def payload(self, ok: bool) -> Dict[str, Any]:
+        dev = (torch.cuda.get_device_name(self.device)
+               if self.device.type == "cuda" else "cpu")
+        return {"bench": self.name, "ok": ok,
+                "torch_version": torch.__version__, "device": dev,
+                "rows": self.rows, "gates": self.gates, "extra": self.extra}
+
+
+def bench_out_dir() -> str:
+    return os.environ.get("REPRO_BENCH_OUT", "bench_out")
+
+
+def gate(name: str, passed: bool, detail: str = "") -> None:
+    """Module-level gate: records into the active recorder when one is
+    open (so the artifact keeps the verdict), always asserts."""
+    if _ACTIVE is not None:
+        _ACTIVE.gate(name, passed, detail)
+    else:
+        assert passed, f"gate {name}: {detail}"
+
+
+@contextmanager
+def bench_record(name: str, device: torch.device):
+    """Scope one benchmark run on ``device``: ``emit``/``gate`` calls
+    inside are captured, and ``BENCH_<name>.json`` (which names the device)
+    is written on exit — also when a gate fails, with ``ok: false`` and the
+    failing verdict included."""
+    global _ACTIVE
+    rec = BenchRecorder(name, device)
+    prev, _ACTIVE = _ACTIVE, rec
+    ok = False
+    try:
+        yield rec
+        ok = True
+    finally:
+        _ACTIVE = prev
+        outdir = bench_out_dir()
+        try:
+            os.makedirs(outdir, exist_ok=True)
+            path = os.path.join(outdir, f"BENCH_{name}.json")
+            with open(path, "w") as fh:
+                json.dump(rec.payload(ok), fh, indent=2, sort_keys=True)
+        except OSError as e:                      # never mask the gate error
+            print(f"# bench_record({name}): artifact write failed: {e}",
+                  file=sys.stderr)

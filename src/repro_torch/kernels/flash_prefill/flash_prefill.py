@@ -1,0 +1,129 @@
+"""Causal (or full) GQA flash attention: the CUDA kernel's wrapper.
+
+``flash_attention`` has the contract of the TPU kernel
+``flash_attention_pallas`` (``repro/kernels/flash_prefill/flash_prefill.py:113``):
+q [B,Sq,H,dh], k/v [B,Sk,Kv,dh] (f32 or bf16) -> o [B,Sq,H,dh] in q's
+dtype, f32 scores and accumulators, the causal mask top-left (key ``t``
+visible to query ``i`` iff ``t <= i``), ``l`` clamped at 1e-30.
+``block_q``/``block_k`` are the caller's contract, checked as the
+reference checks them (``Sq % min(block_q, Sq) == 0``, the same for k);
+the CUDA tile is the kernel's own.
+
+For CUDA tensors it launches ``csrc/flash_prefill.cu`` (one block per
+(64 query rows of one kv group, kv head, batch), all G heads of the group
+sharing each K/V tile; see the note at the top of that file) or raises;
+for CPU tensors it runs the plain twin ``flash_attention_plain``.
+Arguments are checked the same way on both devices.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+from repro_torch.kernels.build import CudaKernel, CudaLibrary
+from repro_torch.kernels.flash_prefill.ref import flash_attention_plain
+
+_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+QUERY_ROWS = 64                          # kQR in the CUDA source
+KEY_TILE = 32                            # kKT
+SMEM_PER_BLOCK = 232448                  # bytes a block may use on sm_90
+MAX_DH = 128                             # acc columns per thread x 16 threads
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_prefill_launch.argtypes = [i] + [p] * 4 + [i] * 7 + [p]
+    lib.flash_prefill_launch.restype = i
+    lib.flash_prefill_error_string.argtypes = [i]
+    lib.flash_prefill_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = CudaLibrary("flash_prefill",
+                      Path(__file__).with_name("csrc") / "flash_prefill.cu",
+                      _bind)
+KERNEL = CudaKernel("flash_attention", LIBRARY)                  # B5
+
+
+def smem_bytes(dh: int) -> int:
+    """Shared memory of one block: the f32 query rows, the K and V tiles
+    and the probabilities, with the source's padded strides."""
+    return 4 * (QUERY_ROWS * (dh + 4) + 2 * KEY_TILE * (dh + 1)
+                + QUERY_ROWS * (KEY_TILE + 1))
+
+
+def precheck(*, B: int, H: int, Kv: int, Sq: int, Sk: int, dh: int,
+             block_q: int = 256, block_k: int = 256) -> Dict[str, object]:
+    """Static launch validation (the port of the TPU kernel's ``precheck``,
+    ``flash_prefill.py:42``: the same divisibility and head-group errors,
+    with the VMEM budget replaced by a Hopper block's shared memory).
+    Returns ``{"errors": [...], "smem_bytes": int}``."""
+    errors: List[str] = []
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    if bq <= 0 or Sq % bq:
+        errors.append(f"Sq={Sq} not divisible by query block bq={bq}")
+    if bk <= 0 or Sk % bk:
+        errors.append(f"Sk={Sk} not divisible by key block bk={bk}")
+    if Kv <= 0 or H % Kv:
+        errors.append(f"H={H} not divisible by Kv={Kv}: GQA head-group "
+                      "index h // G would misalign KV tiles")
+    if not 1 <= dh <= MAX_DH:
+        errors.append(f"dh={dh} outside [1, {MAX_DH}]: the kernel's "
+                      "accumulators cover at most 128 columns")
+    smem = smem_bytes(dh)
+    if smem > SMEM_PER_BLOCK:
+        errors.append(f"shared memory {smem} B exceeds {SMEM_PER_BLOCK} B")
+    return {"errors": errors, "smem_bytes": smem}
+
+
+def _check(q, k, v, block_q: int, block_k: int) -> None:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)}: need "
+                         "[B,Sq,H,dh] and [B,Sk,Kv,dh]")
+    B, Sq, H, dh = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Sk, Kv, dh) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
+                        f"one of {list(_TYPES)}, the same for all three")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    errs = precheck(B=B, H=H, Kv=Kv, Sq=Sq, Sk=Sk, dh=dh, block_q=block_q,
+                    block_k=block_k)["errors"]
+    if errs:
+        raise ValueError("; ".join(errs))
+
+
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, Sq, H, dh = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = KERNEL.lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_prefill_launch(
+            _TYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, Sq, Sk, H, Kv, dh, int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL.name} launch failed: "
+                           + lib.flash_prefill_error_string(err).decode())
+    KERNEL.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 256,
+                    block_k: int = 256) -> torch.Tensor:
+    """GQA attention with the TPU kernel's top-left causal mask.  Launches
+    the kernel for CUDA tensors, runs the plain twin for CPU tensors."""
+    _check(q, k, v, block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    return _launch(q, k, v, causal)

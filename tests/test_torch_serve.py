@@ -106,9 +106,10 @@ def test_launcher_runs_on_cpu(capsys):
     assert "seq 0:" in out and "cache [swan[topk]]" in out
 
 
-def test_port_runs_without_jax_or_the_reference():
-    """The lockstep session and the paged, chunked engine run on the CPU
-    with neither ``jax`` nor any ``repro.`` module imported."""
+def test_port_runs_without_jax_or_the_reference(tmp_path):
+    """The lockstep session, the paged, chunked engine and the kernel
+    microbenchmark (all six kernels' wrappers) run on the CPU with neither
+    ``jax`` nor any ``repro.`` or ``benchmarks`` module imported."""
     code = (
         "import sys\n"
         "from repro_torch.configs import SwanConfig, get_smoke_config\n"
@@ -130,13 +131,20 @@ def test_port_runs_without_jax_or_the_reference():
         "done = e.run([Request(uid=i, tokens=list(range(3, 3 + 5 * i)),"
         " max_new_tokens=3, k=4) for i in (1, 2, 3)])\n"
         "assert sorted(len(c.tokens) for c in done) == [3, 3, 3]\n"
+        "from repro_torch.benchmarks import bench_kernels\n"
+        "import repro_torch.analysis.roofline\n"
+        "import repro_torch.kernels.flash_prefill.ops\n"
+        "import repro_torch.kernels.swan_prune.ops\n"
+        "rec = bench_kernels.run(smoke=True, device='cpu')\n"
+        "assert len(rec.extra['roofline']) == 7\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        " or m.split('.')[0] in ('repro', 'benchmarks')]\n"
         "assert not bad, bad\n"
         "print(tuple(out.shape))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(SRC)
+    env["REPRO_BENCH_OUT"] = str(tmp_path)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "(2, 4)"
+    assert res.stdout.strip().splitlines()[-1] == "(2, 4)"
