@@ -7,20 +7,25 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi) and torch's name.
 2. build    — every CUDA kernel of the port, built from the sources in this
-              checkout (one nvcc per source, all started together).
+              checkout (one nvcc per source, all started together); each
+              instance's registers and spills (ptxas) and its HMMA/HGMMA
+              count (``cuobjdump -sass``): a tensor-core instance must
+              spill nothing and hold tensor-core instructions.
 3. kernels  — each kernel (slab and paged decode, slab and paged chunk
               stats, flash prefill, fused winnowing) against its plain
               PyTorch version on the card, at the shapes its main paths
               give it (the bench's k's, page buckets and full prefixes
-              included), for every value type it takes; paged == slab bit
-              for bit; winnowing bit for bit under a signed-permutation
-              rotation; its median time beside the plain version's, a
-              PyTorch yardstick (``library_ms``) and the bound (the port's
-              roofline: ``repro_torch/analysis/roofline.py``).
+              included) and at the edges of its tiling, for every value
+              type it takes; paged == slab bit for bit; winnowing bit for
+              bit under a signed-permutation rotation; its median time
+              beside the plain version's, a PyTorch yardstick
+              (``library_ms``) and the bound (the port's roofline:
+              ``repro_torch/analysis/roofline.py``).
    bench    — the kernel microbenchmark
               (``repro_torch.benchmarks.bench_kernels.run()``) at full
               llama3-8b width: every kernel launched, every roofline row
-              finite and positive (launch counts zeroed just before).
+              finite and positive, the H100 floors of B3–B5 met (launch
+              counts zeroed just before).
 4. serve    — full-width llama3-8b (bf16, seeded random weights) served
               through the lockstep SWAN path: calibrate, absorb,
               ``ServeSession.generate``.  The kernel launch counts are zeroed
@@ -382,20 +387,20 @@ P_CHUNK, Q_CHUNK, CS = 2, 256 * G, 2048
 CPG = CS // PS
 
 
-def chunk_inputs(kind, sp, gen):
-    """Operands of one chunk-stats read: f32 q [P, KV, Q, DH], packed slab
-    [P, KV, CS, K] (+ scales), sp_len [P]."""
+def chunk_inputs(kind, sp, gen, q_len=Q_CHUNK, k=K):
+    """Operands of one chunk-stats read: f32 q [P, KV, q_len, DH], packed
+    slab [P, KV, CS, k] (+ scales), sp_len [P]."""
     import torch
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     idx = lambda: torch.rand((P_CHUNK, KV, CS, DH), generator=gen, device=dev
-                             ).argsort(-1)[..., :K].to(torch.int8)
-    a = {"q": rnd(P_CHUNK, KV, Q_CHUNK, DH), "k_idx": idx(), "v_idx": idx(),
+                             ).argsort(-1)[..., :k].to(torch.int8)
+    a = {"q": rnd(P_CHUNK, KV, q_len, DH), "k_idx": idx(), "v_idx": idx(),
          "sp_len": torch.tensor(sp, dtype=torch.int32, device=dev)}
     vdt = {"bf16": torch.bfloat16, "f32": torch.float32,
            "fp8": torch.float8_e4m3fn, "int8": torch.int8}[kind]
     for s_ in "kv":
-        a[f"{s_}_vals"] = garbage_like((P_CHUNK, KV, CS, K), vdt, gen)
+        a[f"{s_}_vals"] = garbage_like((P_CHUNK, KV, CS, k), vdt, gen)
         if kind == "int8":
             a[f"{s_}_scale"] = rnd(P_CHUNK, KV, CS).abs() * 0.05 + 0.01
     return a
@@ -430,7 +435,8 @@ def chunk_sdpa_yardstick(a):
 
 
 def chunk_phase():
-    """B3 and B4 against their plain twins, B4 == B3 bit for bit on the same
+    """B3 and B4 against their plain twins (at the engine's and the bench's
+    shapes and the tiling's edges), B4 == B3 bit for bit on the same
     logical rows, then their times at the engine's chunk shape."""
     import torch
     from repro_torch.kernels.swan_chunk.swan_chunk import (
@@ -441,14 +447,23 @@ def chunk_phase():
     # every value type is held near f32 agreement
     tol = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4, "fp8": 1e-4}
     names = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
-    cases = {"sp_len 1000 | 1920": [1000, 1920], "sp_len 0 | 1000": [0, 1000],
-             "sp_len 1920 | dead lane": [1920, 0],
-             "bench, full prefix": [CS, CS]}
+    # case -> (sp_len, queries, k): the engine chunk, empty and dead lanes and
+    # the bench's full prefix, then the tiling's edges: a ragged query tile
+    # (400 = 3 x 128 + 16), k = 32 and 128, and k = 1 (rows of 1-2 bytes,
+    # staged without cp.async)
+    cases = {"sp_len 1000 | 1920": ([1000, 1920], Q_CHUNK, K),
+             "sp_len 0 | 1000": ([0, 1000], Q_CHUNK, K),
+             "sp_len 1920 | dead lane": ([1920, 0], Q_CHUNK, K),
+             "bench, full prefix": ([CS, CS], Q_CHUNK, K),
+             "Q=400, ragged query tile": ([1000, 1920], 400, K),
+             "k=32": ([1000, 1920], Q_CHUNK, 32),
+             "k=128": ([1920, 1000], Q_CHUNK, DH),
+             "k=1": ([1000, 1920], Q_CHUNK, 1)}
     flush = flush_buffer()
     max_err, rows = {}, {}
     for kind in ("bf16", "int8", "fp8", "f32"):
-        for case, sp in cases.items():
-            a = chunk_inputs(kind, sp, gen)
+        for case, (sp, q_len, k) in cases.items():
+            a = chunk_inputs(kind, sp, gen, q_len, k)
             pool, tab = page_out(a, sp, gen, [n for n in names if n in a],
                                  P_CHUNK, pg=CPG)
             if "dead" in case:        # a dead lane reads a live lane's pages
@@ -509,13 +524,20 @@ def chunk_phase():
 # B5 at the bench's prefill shape: 4 sequences of 2048 tokens, 32/8 heads
 FB, FS, FH = 4, 2048, 32
 F_CASES = ((FS, FS), (384, 512), (512, 384))     # (Sq, Sk); block 128
+# (B, Sq, Sk, H, Kv, dh) at the tiling's edges: G = 1, G = 6, dh = 64, dh
+# not a multiple of 16 (40) nor of 8 (20); Sq·G is never a multiple of the
+# 128 rows of a block
+F_EDGES = ((2, 300, 300, 8, 8, DH), (2, 333, 400, 48, 8, DH),
+           (2, 520, 520, 32, 8, 64), (1, 200, 260, 16, 4, 40),
+           (1, 130, 130, 8, 2, 20))
 BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-3              # one bf16 rounding step
 
 
 def flash_phase():
     """B5 against its plain twin (the TPU kernel's top-left causal mask) at
-    Sq == Sk and Sq != Sk, causal and full, f32 (2e-5 abs) and bf16 (one
-    rounding step); then its time at the bench shape beside one SDPA call."""
+    Sq == Sk and Sq != Sk and at the tiling's edges (``F_EDGES``), causal
+    and full, f32 (2e-5 abs) and bf16 (one rounding step); then its time at
+    the bench shape beside one SDPA call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.analysis import roofline as rl
@@ -524,22 +546,27 @@ def flash_phase():
     gen = torch.Generator(device="cuda").manual_seed(3)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     max_err = {}
+    shapes = [(FB, Sq, Sk, FH, KV, DH) for Sq, Sk in F_CASES] + list(F_EDGES)
     for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for causal in (True, False):
-            for Sq, Sk in F_CASES:
-                q = rnd(FB, Sq, FH, DH).to(dt)
-                k, v = rnd(FB, Sk, KV, DH).to(dt), rnd(FB, Sk, KV, DH).to(dt)
-                got = flash_attention(q, k, v, causal, 128, 128)
+            for i, (B_, Sq, Sk, H_, Kv_, dh) in enumerate(shapes):
+                # blocks of 128 as before at the bench's widths; one block
+                # for the edges (the blocks are the caller's contract only)
+                bq, bk = (128, 128) if i < len(F_CASES) else (Sq, Sk)
+                q = rnd(B_, Sq, H_, dh).to(dt)
+                k, v = rnd(B_, Sk, Kv_, dh).to(dt), rnd(B_, Sk, Kv_, dh).to(dt)
+                got = flash_attention(q, k, v, causal, bq, bk)
                 want = flash_attention_plain(q, k, v, causal).float()
                 torch.cuda.synchronize()
                 err = (got.float() - want).abs()
                 ok = (bool((err <= 2e-5).all()) if kind == "f32" else
                       bool((err <= BF16_ATOL + BF16_RTOL * want.abs()).all()))
+                what = (f"B={B_} Sq={Sq} Sk={Sk} H={H_} Kv={Kv_} dh={dh}")
                 log(f"  flash_attention[{kind:4s}] {'causal' if causal else 'full':6s}"
-                    f" Sq={Sq} Sk={Sk}: max_abs_err {err.max().item():.3e} "
+                    f" {what}: max_abs_err {err.max().item():.3e} "
                     f"({'2e-5 abs' if kind == 'f32' else 'one bf16 step'})")
                 check(bool(torch.isfinite(got).all()) and ok,
-                      f"flash_attention[{kind}] causal={causal} Sq={Sq} Sk={Sk}: "
+                      f"flash_attention[{kind}] causal={causal} {what}: "
                       "kernel disagrees with plain")
                 max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
 
@@ -801,10 +828,12 @@ def trace_steps(step, steps: int, what: str) -> None:
         log("  profile: the profiler traced no device time")
         return
     shares = []
-    for name in ("swan_decode_kernel", "swan_chunk_kernel"):
+    # every instance of a library's kernels: swan_decode_kernel<...>,
+    # swan_chunk_mma_kernel<...> and swan_chunk_f32_kernel
+    for name in ("swan_decode_", "swan_chunk_"):
         t = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
         if t:
-            shares.append(f"{name} {t / steps:.1f} ms/step "
+            shares.append(f"{name}* {t / steps:.2f} ms/step "
                           f"({100 * t / busy:.1f}% of device time)")
     log(f"  profile: {steps} {what}, {wall_ms / steps:.1f} ms/step wall "
         f"(traced), card busy {busy / steps:.1f} ms/step "
@@ -1064,6 +1093,94 @@ def exact_phase(kernels):
     return worst
 
 
+# the tensor-core instances: each must hold mma instructions in its SASS and
+# spill nothing
+TENSOR_CORE_INSTANCES = ("flash_prefill_bf16_kernel", "swan_chunk_mma_kernel")
+
+
+def ptxas_resources(log_text):
+    """{instance (mangled): (registers, spill bytes)} from a ptxas -v log."""
+    import re
+    out, cur, spill = {}, None, 0
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), spill)
+    return out
+
+
+def sass_mma_counts(so_path):
+    """{instance (mangled): (HMMA, HGMMA)} counted in ``cuobjdump -sass`` of
+    a built library, or None where the toolkit has no cuobjdump or it
+    fails."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    res = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        return None
+    out, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [0, 0]
+        elif cur and "HGMMA" in line:
+            out[cur][1] += 1
+        elif cur and "HMMA" in line:
+            out[cur][0] += 1
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def demangle(names):
+    import shutil
+    if not names or not shutil.which("c++filt"):
+        return {n: n for n in names}
+    res = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                         capture_output=True)
+    return dict(zip(names, res.stdout.splitlines()))
+
+
+def build_report(libs):
+    """Print each kernel instance's registers, spills and tensor-core
+    instruction counts.  Fails if a library has no ptxas report, or if a
+    tensor-core instance is missing, spills, has no SASS to count or holds
+    no mma instruction."""
+    seen = set()
+    for lib in libs.values():
+        res = ptxas_resources(lib.ptxas_log)
+        check(bool(res), f"{lib.name}: no ptxas report beside "
+                         f"{lib.library_path().name}")
+        sass = sass_mma_counts(lib.library_path())
+        names = demangle(list(res))
+        for fn, (regs, spill) in res.items():
+            mma = None if sass is None else sass.get(fn, (0, 0))
+            short = names[fn].replace("(anonymous namespace)::", "").split("(")[0]
+            short = short.removeprefix("void ")
+            log(f"  {lib.name}: {short}: {regs} registers, {spill} spill bytes, "
+                + ("SASS not read (no cuobjdump)" if mma is None else
+                   f"SASS HMMA {mma[0]}, HGMMA {mma[1]}"))
+            tc = [t for t in TENSOR_CORE_INSTANCES if t in fn]
+            if tc:
+                seen.update(tc)
+                check(spill == 0, f"{short} spills {spill} bytes")
+                check(mma is not None, f"{short}: SASS not read")
+                check(sum(mma) > 0,
+                      f"{short}: no tensor-core instruction in its SASS")
+    check(seen == set(TENSOR_CORE_INSTANCES),
+          f"tensor-core instances not built: {set(TENSOR_CORE_INSTANCES) - seen}")
+
+
 KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
     "swan_decode": ("src/repro_torch/kernels/swan_decode/csrc/swan_decode.cu",
                     "src/repro/kernels/swan_decode/swan_decode.py:196"),
@@ -1111,10 +1228,7 @@ def main(argv=None) -> int:
     libs = {k.library.name: k.library for k in KERNELS}
     log(f"[build] {len(libs)} kernel libraries ({', '.join(libs)}), one nvcc "
         f"each, in parallel: {time.perf_counter() - t0:.1f} s")
-    for lib in libs.values():
-        for line in lib.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line and " 0 bytes" not in line:
-                log(f"  {lib.name}: {line.strip()}")
+    build_report(libs)
 
     err, rows = {}, {}
     by_path = {}          # kernel -> {main path: launches in its run}

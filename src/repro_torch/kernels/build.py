@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel library is one ``csrc/*.cu`` file with a plain C interface
-(it may hold several kernels, each with its own launch count).  At first
+(it may hold several kernels, each with its own launch count); the
+headers it shares with the others live in ``kernels/csrc/``.  At first
 use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``<repo>/build/kernels/`` (listed in ``.gitignore``), named by a hash of the
-source, and loaded with ``ctypes``.  Nothing is built when a module is
-imported: the CPU tests import every module of the port.
+source and the shared headers, and loaded with ``ctypes``; the ptxas
+report of the build is kept beside it (``*.ptxas.log``).  Nothing is
+built when a module is imported: the CPU tests import every module of the
+port.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Callable, Iterable, List, Optional
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+HEADER_DIR = Path(__file__).resolve().with_name("csrc")    # shared *.cuh
 
 
 def _nvcc() -> str:
@@ -38,7 +42,8 @@ def _nvcc() -> str:
 class CudaLibrary:
     """One ``csrc/*.cu`` source built into one shared library: where its
     source is, how its C functions are typed (``bind``), and the ptxas
-    report of its last build."""
+    report of the build of this exact source (``ptxas_log``, read back from
+    beside the library when it was built earlier)."""
 
     def __init__(self, name: str, source: Path,
                  bind: Callable[[ctypes.CDLL], None]):
@@ -47,12 +52,20 @@ class CudaLibrary:
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
-        self.ptxas_log = ""
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha256(self.source.read_bytes()
+                           + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(HEADER_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()
         return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
+
+    @property
+    def ptxas_log(self) -> str:
+        """The ptxas ``-v`` report of the built library ("" before a build)."""
+        log = self.library_path().with_suffix(".ptxas.log")
+        return log.read_text() if log.exists() else ""
 
     def build(self) -> Path:
         """Compile unless a library of this exact source exists; returns it."""
@@ -61,13 +74,15 @@ class CudaLibrary:
             return out
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(HEADER_DIR), "-Xptxas", "-v",
+               "-o", str(tmp), str(self.source)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {self.source}:\n{res.stderr}")
-        self.ptxas_log = res.stderr
+        tmp_log = tmp.with_suffix(".log.tmp")
+        tmp_log.write_text(res.stderr)
+        os.replace(tmp_log, out.with_suffix(".ptxas.log"))
         os.replace(tmp, out)                  # atomic: concurrent builds agree
         return out
 

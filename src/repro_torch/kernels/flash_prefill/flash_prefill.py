@@ -9,11 +9,14 @@ visible to query ``i`` iff ``t <= i``), ``l`` clamped at 1e-30.
 reference checks them (``Sq % min(block_q, Sq) == 0``, the same for k);
 the CUDA tile is the kernel's own.
 
-For CUDA tensors it launches ``csrc/flash_prefill.cu`` (one block per
-(64 query rows of one kv group, kv head, batch), all G heads of the group
-sharing each K/V tile; see the note at the top of that file) or raises;
-for CPU tensors it runs the plain twin ``flash_attention_plain``.
-Arguments are checked the same way on both devices.
+For CUDA tensors it launches ``csrc/flash_prefill.cu`` or raises; for CPU
+tensors it runs the plain twin ``flash_attention_plain``.  The source has
+one instance per dtype, both with all G heads of a kv group sharing each
+K/V tile (see the note at the top of that file): bf16 on the tensor cores
+by wgmma (two warpgroups per 128 query rows, K/V tiles of 64 keys in a
+two-stage cp.async ring), f32 on CUDA cores (one block per 64 query rows,
+K/V tiles of 32 keys).  Arguments are checked the same way on both
+devices.
 """
 from __future__ import annotations
 
@@ -27,10 +30,12 @@ from repro_torch.kernels.build import CudaKernel, CudaLibrary
 from repro_torch.kernels.flash_prefill.ref import flash_attention_plain
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
-QUERY_ROWS = 64                          # kQR in the CUDA source
-KEY_TILE = 32                            # kKT
+# (query rows per block, keys per tile) of each instance: tc::kBM, tc::kBN
+# and f32::kQR, f32::kKT in the CUDA source
+TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 32)}
+KV_STAGES = 2                            # tc::kStages: the bf16 K/V ring
 SMEM_PER_BLOCK = 232448                  # bytes a block may use on sm_90
-MAX_DH = 128                             # acc columns per thread x 16 threads
+MAX_DH = 128                             # accumulator columns a row holds
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -47,19 +52,26 @@ LIBRARY = CudaLibrary("flash_prefill",
 KERNEL = CudaKernel("flash_attention", LIBRARY)                  # B5
 
 
-def smem_bytes(dh: int) -> int:
-    """Shared memory of one block: the f32 query rows, the K and V tiles
-    and the probabilities, with the source's padded strides."""
-    return 4 * (QUERY_ROWS * (dh + 4) + 2 * KEY_TILE * (dh + 1)
-                + QUERY_ROWS * (KEY_TILE + 1))
+def smem_bytes(dh: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one block of the instance for ``dtype``.  bf16: the
+    q rows and the ring of K and V tiles, each 128 columns wide (dh
+    zero-padded: the swizzled layout wgmma reads), plus 1 KB to align them
+    on the swizzle atoms.  f32: the query rows, the K and V tiles and the
+    probabilities, with the source's padded strides."""
+    rows, keys = TILES[dtype]
+    if dtype == torch.bfloat16:
+        return 1024 + (rows + KV_STAGES * 2 * keys) * MAX_DH * 2
+    return 4 * (rows * (dh + 4) + 2 * keys * (dh + 1) + rows * (keys + 1))
 
 
 def precheck(*, B: int, H: int, Kv: int, Sq: int, Sk: int, dh: int,
-             block_q: int = 256, block_k: int = 256) -> Dict[str, object]:
+             block_q: int = 256, block_k: int = 256,
+             dtype: torch.dtype = torch.bfloat16) -> Dict[str, object]:
     """Static launch validation (the port of the TPU kernel's ``precheck``,
     ``flash_prefill.py:42``: the same divisibility and head-group errors,
-    with the VMEM budget replaced by a Hopper block's shared memory).
-    Returns ``{"errors": [...], "smem_bytes": int}``."""
+    with the VMEM budget replaced by the shared memory of a Hopper block of
+    the instance for ``dtype``).  Returns ``{"errors": [...],
+    "smem_bytes": int}``."""
     errors: List[str] = []
     bq, bk = min(block_q, Sq), min(block_k, Sk)
     if bq <= 0 or Sq % bq:
@@ -72,7 +84,7 @@ def precheck(*, B: int, H: int, Kv: int, Sq: int, Sk: int, dh: int,
     if not 1 <= dh <= MAX_DH:
         errors.append(f"dh={dh} outside [1, {MAX_DH}]: the kernel's "
                       "accumulators cover at most 128 columns")
-    smem = smem_bytes(dh)
+    smem = smem_bytes(dh, dtype)
     if smem > SMEM_PER_BLOCK:
         errors.append(f"shared memory {smem} B exceeds {SMEM_PER_BLOCK} B")
     return {"errors": errors, "smem_bytes": smem}
@@ -93,7 +105,7 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     errs = precheck(B=B, H=H, Kv=Kv, Sq=Sq, Sk=Sk, dh=dh, block_q=block_q,
-                    block_k=block_k)["errors"]
+                    block_k=block_k, dtype=q.dtype)["errors"]
     if errs:
         raise ValueError("; ".join(errs))
 

@@ -14,7 +14,12 @@ page pool [n_pages,Kv,ps,k] read through the lanes' page-table rows
 For CUDA tensors they launch ``csrc/swan_chunk.cu`` (one block per (query
 tile, kv head, lane), one body for both layouts; see the note at the top
 of that file) or raise; for CPU tensors they run the plain twins in
-``ref.py``.  Arguments are checked the same way on both devices.
+``ref.py``.  The source has two bodies, picked by the value type: bf16,
+int8 and fp8 values on tensor cores (128 queries a block, packed tiles of
+64 rows expanded to bf16, q split into two bf16 parts, three for int8,
+and p into two), f32 values on CUDA cores (64 queries a block, tiles of
+32 rows in f32).
+Arguments are checked the same way on both devices.
 """
 from __future__ import annotations
 
@@ -36,10 +41,11 @@ swan_chunk_stats_paged_plain = swan_chunk_stats_paged_reference
 
 _V_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
             torch.float8_e4m3fn: 3}
-QUERY_TILE = 64                          # kQT in the CUDA source
-ROW_TILE = 32                            # kBS
+# (queries per block, packed rows per tile) of each body: tc::kQT, tc::kBS
+# and f32::kQT, f32::kBS in the CUDA source
+TILES = {"tensor_core": (128, 64), "f32": (64, 32)}
 SMEM_PER_BLOCK = 232448                  # bytes a block may use on sm_90
-MAX_DH = 128                             # acc columns per thread x 16 threads
+MAX_DH = 128                             # accumulator columns a query holds
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -56,18 +62,33 @@ KERNEL = CudaKernel("swan_chunk_stats", LIBRARY)                 # slab (B3)
 KERNEL_PAGED = CudaKernel("swan_chunk_stats_paged", LIBRARY)     # pool (B4)
 
 
-def smem_bytes(dh: int) -> int:
-    """Shared memory of one block: the f32 q tile, the expanded k and v row
-    tiles and the probabilities, with the source's padded strides."""
-    return 4 * (QUERY_TILE * (dh + 4) + 2 * ROW_TILE * (dh + 1)
-                + QUERY_TILE * (ROW_TILE + 1))
+def smem_bytes(dh: int, k_max: int,
+               v_dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one block of the body for ``v_dtype``.  Tensor
+    cores (bf16, int8, fp8): the expanded bf16 k and v tiles (dh padded to
+    a multiple of 16, plus 8 columns against ldmatrix bank conflicts), the
+    q tile as two bf16 parts (three for int8) with the same rows, and two
+    staging buffers of packed rows (vals, idx and scales of both sides,
+    each region rounded up to 16 bytes).  f32: the q tile, the expanded k
+    and v tiles and the probabilities, with the source's padded strides."""
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    if v_dtype == torch.float32:
+        q_t, rows = TILES["f32"]
+        return 4 * (q_t * (dh + 4) + 2 * rows * (dh + 1) + q_t * (rows + 1))
+    q_t, rows = TILES["tensor_core"]
+    vb = torch.empty((), dtype=v_dtype).element_size()
+    stage = 2 * (a16(rows * k_max * vb) + a16(rows * k_max) + rows * 4)
+    q_parts = 3 if v_dtype == torch.int8 else 2
+    return (2 * rows + q_parts * q_t) * (a16(dh) + 8) * 2 + 2 * stage
 
 
-def precheck(*, dh: int, k_max: int, S: int) -> Dict[str, object]:
+def precheck(*, dh: int, k_max: int, S: int,
+             v_dtype: torch.dtype = torch.bfloat16) -> Dict[str, object]:
     """Static launch validation (the port of the TPU kernel's ``precheck``,
-    ``swan_chunk.py:59``, budgeted against a Hopper block's shared memory).
-    ``S`` is the sparse extent (``Pg * page_size`` for the paged kernel).
-    Returns ``{"errors": [...], "smem_bytes": int}``."""
+    ``swan_chunk.py:59``, budgeted against the shared memory of a Hopper
+    block of the body for ``v_dtype``).  ``S`` is the sparse extent
+    (``Pg * page_size`` for the paged kernel).  Returns ``{"errors":
+    [...], "smem_bytes": int}``."""
     errors: List[str] = []
     if S <= 0:
         errors.append(f"empty sparse extent S={S}: the caller must "
@@ -77,7 +98,7 @@ def precheck(*, dh: int, k_max: int, S: int) -> Dict[str, object]:
     if dh > MAX_DH:
         errors.append(f"dh={dh} > {MAX_DH}: the kernel's accumulators and "
                       "int8 indices cover at most 128 columns")
-    smem = smem_bytes(dh)
+    smem = smem_bytes(dh, k_max, v_dtype)
     if smem > SMEM_PER_BLOCK:
         errors.append(f"shared memory {smem} B exceeds {SMEM_PER_BLOCK} B")
     return {"errors": errors, "smem_bytes": smem}
@@ -134,7 +155,7 @@ def _check(q, k_vals, k_idx, v_vals, v_idx, sp_len, k_scale, v_scale,
         raise ValueError("all operands must be on q's device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
-    errs = precheck(dh=dh, k_max=k, S=S)["errors"]
+    errs = precheck(dh=dh, k_max=k, S=S, v_dtype=k_vals.dtype)["errors"]
     if errs:
         raise ValueError("; ".join(errs))
     return S

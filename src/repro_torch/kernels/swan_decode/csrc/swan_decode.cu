@@ -46,13 +46,13 @@
 
 #include <cmath>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileRows = 4;          // rows per warp between two rescales
-constexpr float kNegInf = -1e30f;     // finite "minus infinity", as the TPU kernel
-constexpr int kMaxSmem = 232448;      // bytes a block may use on sm_90
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -126,7 +126,7 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
   // ---- sparse prefix: per-warp online softmax --------------------------------
   float m[G], l[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) { m[g] = kNegInf; l[g] = 0.f; }
+  for (int g = 0; g < G; ++g) { m[g] = sm90::kNegInf; l[g] = 0.f; }
   float* acc_w = acc_s + warp * G * dh;
 
   for (int t0 = warp * kTileRows; t0 < n_sp; t0 += kWarps * kTileRows) {
@@ -153,14 +153,14 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float sc = warp_sum(part[g]) * ks * scale;
-        s[r][g] = (t < n_sp) ? sc : kNegInf;
+        s[r][g] = (t < n_sp) ? sc : sm90::kNegInf;
       }
     }
     // one rescale per tile
     float corr[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float mt = kNegInf;
+      float mt = sm90::kNegInf;
 #pragma unroll
       for (int r = 0; r < kTileRows; ++r) mt = fmaxf(mt, s[r][g]);
       const float m_new = fmaxf(m[g], mt);
@@ -221,7 +221,7 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float sc = warp_sum(part[g]) * scale;
-      if (lane == 0) pb_s[g * b + t] = valid ? sc : kNegInf;
+      if (lane == 0) pb_s[g * b + t] = valid ? sc : sm90::kNegInf;
     }
   }
   __syncthreads();
@@ -229,7 +229,7 @@ swan_decode_kernel(const QT* __restrict__ q, const VT* __restrict__ k_vals,
   // ---- merge: warp g owns query row g -------------------------------------------
   if (warp < G) {
     const int g = warp;
-    float mx = kNegInf;
+    float mx = sm90::kNegInf;
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * G + g]);
     for (int t = lane; t < b; t += 32) mx = fmaxf(mx, pb_s[g * b + t]);
 #pragma unroll
@@ -280,13 +280,9 @@ cudaError_t launch(const void* q, const void* k_vals, const void* k_idx, const v
                    int B, int Kv, int dh, int S, int k, int b, int ps, int n_pages,
                    cudaStream_t stream) {
   const int smem = smem_bytes(G, dh, b);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kern = swan_decode_kernel<QT, VT, G>;
-  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = sm90::opt_in_smem(kern, smem);
+  if (err != cudaSuccess) return err;
   kern<<<B * Kv, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const VT*>(k_vals),
       static_cast<const int8_t*>(k_idx), static_cast<const VT*>(v_vals),

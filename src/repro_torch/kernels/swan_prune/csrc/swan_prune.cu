@@ -28,13 +28,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kRows = 64;             // vectors per block: each warp walks 8
 constexpr int kMaxDh = 128;           // int8 indices; 4 columns per lane
 constexpr int kCols = kMaxDh / 32;
-constexpr int kMaxSmem = 232448;      // bytes a block may use on sm_90
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -117,13 +118,9 @@ template <typename T>
 cudaError_t launch(const void* x, const void* p_rot, void* vals, void* idx, int B, int Kv,
                    int S, int dh, int k, cudaStream_t stream) {
   const int smem = smem_bytes(dh);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kern = swan_prune_kernel<T>;
-  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic shared memory
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = sm90::opt_in_smem(kern, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((S + kRows - 1) / kRows, Kv, B);
   kern<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(p_rot), static_cast<T*>(vals),

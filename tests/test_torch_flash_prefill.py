@@ -9,6 +9,8 @@ reference's oracle at Sq != Sk.  Tolerances follow
 ``tests/test_kernels.py:28``: f32 at 5e-5, bf16 at 5e-2 abs with 1e-2
 relative (the twin rounds once, from f32, the Pallas kernel too, but the
 two sum in other orders)."""
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -128,3 +130,107 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         flash_attention(torch.zeros(1, 16, 4, 16),
                         torch.zeros(1, 16, 2, 16, dtype=torch.bfloat16),
                         torch.zeros(1, 16, 2, 16, dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's numerics, emulated in plain torch: q, k and v are bf16
+# operands (exact), S = q.k^T accumulates in f32 over tiles of 64 keys with
+# the online softmax in f32 on log2-scaled scores, P is split into P_hi +
+# P_lo bf16 for two P.V products accumulated in f32, l sums the f32 P, and
+# o = acc / max(l, 1e-30) is rounded once to bf16.  It must agree with the
+# plain twin within chip_smoke.py's one bf16 step (1e-3 abs + 2^-7 |want|);
+# with P_hi alone it misses that step on causal rows that see few keys.
+# The f32 instance multiplies in f32 on CUDA cores: its emulation is the f32
+# operands themselves, held to 2e-5.
+# ---------------------------------------------------------------------------
+
+KEY_TILE = fpk.TILES[torch.bfloat16][1]
+BF16_ATOL, BF16_RTOL = 1e-3, 2 ** -7              # chip_smoke.py's bf16 check
+
+
+def _emulate_flash_kernel(q, k, v, causal, split=True):
+    B, Sq, H, dh = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qf = q.float().permute(0, 2, 1, 3)                       # [B, H, Sq, dh]
+    kf = k.float().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    bf16 = q.dtype == torch.bfloat16
+    scale = (math.log2(math.e) if bf16 else 1.0) / math.sqrt(dh)
+    exp = torch.exp2 if bf16 else torch.exp
+    m = torch.full((B, H, Sq), -1e30)
+    l, o = torch.zeros(B, H, Sq), torch.zeros(B, H, Sq, dh)
+    pos = torch.arange(Sq)
+    for t0 in range(0, Sk, KEY_TILE):
+        keys = torch.arange(t0, min(t0 + KEY_TILE, Sk))
+        s = qf @ kf[:, :, keys].transpose(-1, -2) * scale
+        ok = keys[None] <= pos[:, None] if causal else torch.ones(
+            Sq, len(keys), dtype=torch.bool)
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        mx = torch.maximum(m, s.amax(-1))
+        corr = exp(m - mx)
+        p = torch.where(ok, exp(s - mx[..., None]), torch.tensor(0.))
+        l = l * corr + p.sum(-1)
+        parts = [p]
+        if bf16:
+            hi = p.bfloat16().float()
+            parts = [hi, (p - hi).bfloat16().float()] if split else [hi]
+        o = o * corr[..., None] + sum(x @ vf[:, :, keys] for x in parts)
+        m = mx
+    out = o / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _one_step_ratio(got, want):
+    """max of |got - want| / (1e-3 + 2^-7 |want|): <= 1 is one bf16 step."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (BF16_ATOL + BF16_RTOL * want.abs())).max()
+
+
+EMU_SHAPES = [
+    (1, 128, 128, 4, 2, 64),       # G = 2, two key tiles
+    (1, 200, 200, 8, 8, 32),       # G = 1, ragged tile
+    (1, 96, 160, 6, 1, 16),        # G = 6, Sq < Sk
+    (1, 160, 96, 4, 2, 40),        # Sq > Sk, dh not a multiple of 16
+]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_kernel_numerics_scheme_meets_chip_tolerance(kind, shape, causal):
+    q, k, v = (_torch(x) for x in _inputs(kind, *shape, seed=5))
+    got = _emulate_flash_kernel(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    assert got.dtype == want.dtype
+    if kind == "f32":
+        assert (got - want).abs().max() <= 2e-5
+    else:
+        assert _one_step_ratio(got, want) <= 1.0
+
+
+def test_kernel_numerics_need_the_p_split():
+    """P rounded once to bf16 misses one bf16 step on the causal rows that
+    see few keys (at the bench's dh = 128, G = 4)."""
+    q, k, v = (_torch(x) for x in _inputs("bf16", 1, 256, 256, 8, 2, 128,
+                                          seed=0))
+    want = flash_attention_plain(q, k, v, True)
+    assert _one_step_ratio(_emulate_flash_kernel(q, k, v, True), want) <= 1
+    assert _one_step_ratio(_emulate_flash_kernel(q, k, v, True, split=False),
+                           want) > 1
+
+
+@pytest.mark.parametrize("dh", [16, 20, 40, 64, 100, 128])
+def test_precheck_budget_of_each_instance(dh):
+    """bf16: 128 q rows and a ring of two K and V tiles of 64 keys, every
+    tile 128 columns wide whatever dh (zero-padded, which is exact, so any
+    dh <= 128 is accepted), plus 1 KB of alignment; f32: the f32 tiles."""
+    shape = dict(B=1, H=4, Kv=2, Sq=64, Sk=64, dh=dh)
+    got = fpk.precheck(**shape)
+    assert got["errors"] == []
+    assert got["smem_bytes"] == 1024 + (128 + 2 * 2 * 64) * 128 * 2 == 99_328
+    f32 = fpk.precheck(**shape, dtype=torch.float32)
+    assert f32["errors"] == []
+    assert f32["smem_bytes"] == 4 * (64 * (dh + 4) + 2 * 32 * (dh + 1)
+                                     + 64 * 33)
+    assert max(got["smem_bytes"], f32["smem_bytes"]) <= fpk.SMEM_PER_BLOCK

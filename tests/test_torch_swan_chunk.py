@@ -11,6 +11,8 @@ value type.  The reference's pure chunk path (``_sparse_stats_bulk``)
 rounds q to the cache dtype before the dot; where that dtype is bf16 (bf16
 and fp8 values) the twin differs from it by up to 5e-2 — the cost of
 following the kernel."""
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -256,9 +258,169 @@ def test_paged_wrappers_reject_bad_page_table(rows, err):
                               a["buf_pos"], a["pos"], a["sp_len"], bad)
 
 
+def _tc_smem(dh, k, vb, q_parts=2):
+    """The tensor-core body's shared memory: expanded bf16 k and v tiles of
+    64 rows ([64, dh16 + 8]), the q tile as q_parts bf16 parts ([128, dh16
+    + 8] each; three for int8), two staging buffers of 64 packed rows
+    (vals, idx and scales of both sides, regions rounded up to 16 bytes)."""
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    row = (a16(dh) + 8) * 2
+    stage = 2 * (a16(64 * k * vb) + a16(64 * k) + 64 * 4)
+    return (2 * 64 + q_parts * 128) * row + 2 * stage
+
+
 def test_chunk_precheck_budget():
     ok = sck.precheck(dh=128, k_max=64, S=4096)
-    assert not ok["errors"] and 70_000 < ok["smem_bytes"] < 80_000
+    # the engine chunk's bf16 body: 34,816 B of expanded tiles, 69,632 B of
+    # q parts and two 25,088 B staging buffers
+    assert not ok["errors"]
+    assert ok["smem_bytes"] == _tc_smem(128, 64, 2) == 154_624
     assert sck.precheck(dh=128, k_max=129, S=4096)["errors"]
     assert sck.precheck(dh=256, k_max=64, S=4096)["errors"]
     assert sck.precheck(dh=128, k_max=64, S=0)["errors"]
+
+
+@pytest.mark.parametrize("dh", [16, 20, 40, 64, 100, 128])
+def test_chunk_precheck_budget_of_each_body(dh):
+    """Every dh up to 128 fits each body; a dh that is not a multiple of 16
+    is accepted (the tiles pad it with zero columns, which is exact)."""
+    k = min(64, dh)
+    for dtype, vb in ((torch.bfloat16, 2), (torch.float8_e4m3fn, 1)):
+        got = sck.precheck(dh=dh, k_max=k, S=64, v_dtype=dtype)
+        assert got["errors"] == [] and got["smem_bytes"] == _tc_smem(dh, k, vb)
+    got = sck.precheck(dh=dh, k_max=k, S=64, v_dtype=torch.int8)
+    assert got["errors"] == []
+    assert got["smem_bytes"] == _tc_smem(dh, k, 1, q_parts=3)
+    f32 = sck.precheck(dh=dh, k_max=k, S=64, v_dtype=torch.float32)
+    assert f32["errors"] == []
+    assert f32["smem_bytes"] == 4 * (64 * (dh + 4) + 2 * 32 * (dh + 1) + 64 * 33)
+    worst = sck.precheck(dh=dh, k_max=dh, S=64, v_dtype=torch.int8)
+    assert worst["smem_bytes"] <= sck.SMEM_PER_BLOCK
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernel's numerics, emulated in plain torch.  For bf16, int8
+# and fp8 values the CUDA kernel expands each tile of 64 packed rows into bf16
+# (exact for those types), splits the f32 q into q_hi + q_lo bf16 halves (two
+# products for S; int8 adds a third part q_lo2), multiplies S by the int8 key
+# scale after the product, runs the online softmax in f32 in natural units
+# (exp2 of (s - m)·log2 e), folds the int8 value scale into p and splits p
+# into p_hi + p_lo (two products for O), and sums l over the f32 p, every
+# product accumulated in f32.  f32 values keep a CUDA-core f32 body, emulated
+# with f32 operands.  The emulation must agree with the plain twin within
+# chip_smoke.py's tolerances (1e-5 for f32 values, 1e-4 for the others);
+# without the lo halves it must miss 1e-5.
+# ---------------------------------------------------------------------------
+
+EMU = dict(P=2, Kv=2, Q=40, S=160, dh=128)          # three row tiles: 64, 64, 32
+EMU_TOL = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4, "fp8": 1e-4}
+ROW_TILE = sck.TILES["tensor_core"][1]
+
+
+def _emu_inputs(kind, k, seed=11):
+    """Seeded operands of one chunk read at EMU shapes, sp_len (150, 0)."""
+    rng = np.random.default_rng(seed)
+    P, Kv, Q, S, dh = (EMU[n] for n in ("P", "Kv", "Q", "S", "dh"))
+    a = {"q": rng.standard_normal((P, Kv, Q, dh)).astype(np.float32),
+         "sp_len": np.asarray([150, 0], np.int32)}
+    for s in "kv":
+        a[f"{s}_idx"] = np.stack([rng.permutation(dh)[:k] for _ in
+                                  range(P * Kv * S)]).reshape(P, Kv, S, k
+                                                              ).astype(np.int8)
+        if kind == "int8":
+            a[f"{s}_vals"] = rng.integers(-128, 128, (P, Kv, S, k)
+                                          ).astype(np.int8)
+            a[f"{s}_scale"] = (np.abs(rng.standard_normal((P, Kv, S))) * 0.05
+                               + 0.01).astype(np.float32)
+        else:
+            vdt = {"f32": np.float32, "bf16": ml_dtypes.bfloat16,
+                   "fp8": ml_dtypes.float8_e4m3fn}[kind]
+            a[f"{s}_vals"] = rng.standard_normal((P, Kv, S, k)).astype(vdt)
+    return to_torch(a, device="cpu")
+
+
+def _emulate_chunk_kernel(t, split=True):
+    """The CUDA kernel's operand scheme on CPU: (m_safe, l, o_unnorm)."""
+    q = t["q"]
+    P, Kv, Q, dh = q.shape
+    S = t["k_vals"].shape[2]
+    tensor_core = t["k_vals"].dtype != torch.float32
+    bf = lambda x: x.bfloat16().float()  # noqa: E731
+
+    def parts(x, n):
+        """x as n bf16 parts (hi, lo, lo2), f32 itself on the f32 body."""
+        if not tensor_core:
+            return [x]
+        out = []
+        for _ in range(n if split else 1):
+            out.append(bf(x - sum(out)))
+        return out
+
+    def dense(s):
+        d = torch.zeros(P, Kv, S, dh)
+        return d.scatter_(-1, t[f"{s}_idx"].long(), t[f"{s}_vals"].float())
+
+    kd, vd = dense("k"), dense("v")
+    assert not tensor_core or torch.equal(bf(kd), kd)   # exact in bf16
+    ksc, vsc = t.get("k_scale"), t.get("v_scale")
+    q_parts = 3 if ksc is not None else 2
+    log2e = math.log2(math.e)
+    m = torch.full((P, Kv, Q), -1e30)
+    l, o = torch.zeros(P, Kv, Q), torch.zeros(P, Kv, Q, dh)
+    for t0 in range(0, S, ROW_TILE):
+        rows = slice(t0, t0 + ROW_TILE)
+        s = sum(h @ kd[:, :, rows].transpose(-1, -2) for h in parts(q, q_parts))
+        if ksc is not None:
+            s = s * ksc[:, :, None, rows]
+        s = s / math.sqrt(dh)
+        valid = (torch.arange(t0, min(t0 + ROW_TILE, S))[None, None, None]
+                 < t["sp_len"][:, None, None, None])
+        s = torch.where(valid, s, torch.tensor(-1e30))
+        mx = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2((m - mx) * log2e)
+        p = torch.where(valid, torch.exp2((s - mx[..., None]) * log2e),
+                        torch.tensor(0.))
+        l = l * corr + p.sum(-1)
+        pv = p if vsc is None else p * vsc[:, :, None, rows]
+        o = o * corr[..., None] + sum(h @ vd[:, :, rows] for h in parts(pv, 2))
+        m = mx
+    m_safe = torch.where(m > -5e29, m, torch.tensor(0.))
+    return m_safe, l, o
+
+
+def _stats_err(got, want):
+    """chip_smoke.py's error of chunk stats: m_safe abs, l and o/l relative
+    (abs / (1 + |want|)), o/l over the queries with a live prefix."""
+    (m, l, o), (wm, wl, wo) = got, want
+    live = wl > 0
+    on = lambda x, y: x / y.clamp(min=1e-30)[..., None]  # noqa: E731
+    ol = ((on(o, l) - on(wo, wl))[live].abs()
+          / (1 + on(wo, wl)[live].abs()))
+    return max((m - wm).abs().max().item(),
+               ((l - wl).abs() / (1 + wl.abs())).max().item(),
+               ol.max().item() if ol.numel() else 0.0)
+
+
+def _twin(t):
+    return sck.swan_chunk_stats_plain(
+        t["q"], t["k_vals"], t["k_idx"], t["v_vals"], t["v_idx"],
+        t["sp_len"], t.get("k_scale"), t.get("v_scale"))
+
+
+@pytest.mark.parametrize("k", [1, 32, 64])
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_kernel_numerics_scheme_meets_chip_tolerance(kind, k):
+    t = _emu_inputs(kind, k)
+    got, want = _emulate_chunk_kernel(t), _twin(t)
+    assert _stats_err(got, want) <= EMU_TOL[kind]
+    for x in got:                                   # the dead lane: (0, 0, 0)
+        assert not x[1].any()
+
+
+@pytest.mark.parametrize("k", [32, 64])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_kernel_numerics_need_the_lo_halves(kind, k):
+    """One bf16 rounding of q and of p misses the f32 tolerance (1e-5) by
+    far: the split is what holds the tensor-core body to the contract."""
+    t = _emu_inputs(kind, k)
+    assert _stats_err(_emulate_chunk_kernel(t, split=False), _twin(t)) > 1e-5
