@@ -1,6 +1,6 @@
-// Warp-level tensor-core and asynchronous-copy helpers shared by the port's
+// Warp-level tensor-core helpers shared by the port's
 // attention kernels (sm_90a): inline PTX for mma.sync m16n8k16 on bf16 with
-// f32 accumulators, ldmatrix, and cp.async into shared memory.
+// f32 accumulators and ldmatrix (cp.async and smem_addr live in common.cuh).
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = threadIdx.x % 32,
 // gq = lane / 4, tq = lane % 4):
@@ -17,32 +17,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace sm90 {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; src_bytes < 16 zero-fills the rest (0: all zeros,
-// and nothing is read from src).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

@@ -64,8 +64,9 @@
 // queries x 2 rows), the online softmax by shuffles over the 16 threads that
 // share a query, acc[64, dh] += p.v (thread = 4 queries x dh/16 columns).
 //
-// Slab and paged share each body: only the row address differs (`sparse_row`),
-// so the paged kernel equals the slab kernel bit for bit on the same logical rows.
+// Slab and paged share each body: only the row address differs (`sparse_row`,
+// kernels/csrc/common.cuh, as `stage_rows`), so the paged kernel equals the
+// slab kernel bit for bit on the same logical rows.
 //
 // Plain C entry point (loaded with ctypes); returns the cudaError_t of the launch.
 
@@ -83,23 +84,6 @@
 namespace {
 
 constexpr int kMaxDh = 128;
-
-// Row index of sparse row t of (lane, kv head kv): slab when page_tab is null,
-// else through the lane's page-table row (S = Pg * ps logical rows); page ids
-// are clamped into the pool.
-__device__ __forceinline__ size_t sparse_row(const int* __restrict__ page_tab, int lane,
-                                             int kv, int Kv, int S, int ps, int n_pages,
-                                             int t) {
-  if (page_tab == nullptr) return (static_cast<size_t>(lane) * Kv + kv) * S + t;
-  const int page = min(max(__ldg(page_tab + static_cast<size_t>(lane) * (S / ps) + t / ps), 0),
-                       n_pages - 1);
-  return (static_cast<size_t>(page) * Kv + kv) * ps + t % ps;
-}
-
-// int8 index -> column, clamped inside the tile (valid indices are < dh).
-__device__ __forceinline__ int col(int8_t i, int dh) {
-  return min(static_cast<int>(static_cast<uint8_t>(i)), dh - 1);
-}
 
 // ---------------------------------------------------------------------------
 // bf16 / int8 / fp8 values: mma.sync tensor cores
@@ -143,25 +127,6 @@ __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_fp8_e4m3 x) {
   return __float2bfloat16(static_cast<float>(x));       // exact: 4 significant bits
 }
 
-// Copy rows [t0, t0 + n) of a packed leaf (row_bytes each, rows addressed by
-// sparse_row) into contiguous staging rows, g bytes a copy (16 and 4:
-// cp.async; 1: plain loads, for rows whose size or base is not 4-aligned).
-__device__ __forceinline__ void stage_rows(unsigned char* dst, const void* src, int row_bytes,
-                                           int g, int t0, int n, const int* page_tab, int lane,
-                                           int kv, int Kv, int S, int ps, int n_pages) {
-  const unsigned char* s = static_cast<const unsigned char*>(src);
-  const int cpr = row_bytes / g;
-  for (int i = threadIdx.x; i < n * cpr; i += tc::kThreads) {
-    const int r = i / cpr, c = i - r * cpr;
-    const size_t row = sparse_row(page_tab, lane, kv, Kv, S, ps, n_pages, t0 + r);
-    const unsigned char* from = s + row * row_bytes + c * g;
-    unsigned char* to = dst + r * row_bytes + c * g;
-    if (g == 16) sm90::cp_async16(to, from);
-    else if (g == 4) sm90::cp_async4(to, from);
-    else *to = *from;
-  }
-}
-
 // VT: type of the packed values (bf16, int8 with an f32 per-row scale, fp8 e4m3).
 // bf16 parts of q: hi + lo (16 bits), and lo2 for int8 (24 bits).
 template <typename VT>
@@ -198,17 +163,19 @@ swan_chunk_mma_kernel(const float* __restrict__ q, const VT* __restrict__ k_vals
     const int t0 = j * tc::kBS, n = min(tc::kBS, n_valid - t0);
     unsigned char* sb = stage0 + st * lay.bytes();
     const int vb = k * static_cast<int>(sizeof(VT));
-    stage_rows(sb, k_vals, vb, g_vals, t0, n, page_tab, lane_p, kv, Kv, S, ps, n_pages);
-    stage_rows(sb + lay.vals, v_vals, vb, g_vals, t0, n, page_tab, lane_p, kv, Kv, S, ps,
-               n_pages);
+    auto stage = [&](unsigned char* dst, const void* src, int row_bytes, int g) {
+      sm90::stage_rows(dst, src, row_bytes, g, t0, n, page_tab, lane_p, kv, Kv, S, ps, n_pages,
+                       tc::kThreads);
+    };
+    stage(sb, k_vals, vb, g_vals);
+    stage(sb + lay.vals, v_vals, vb, g_vals);
     sb += 2 * lay.vals;
-    stage_rows(sb, k_idx, k, g_idx, t0, n, page_tab, lane_p, kv, Kv, S, ps, n_pages);
-    stage_rows(sb + lay.idx, v_idx, k, g_idx, t0, n, page_tab, lane_p, kv, Kv, S, ps, n_pages);
+    stage(sb, k_idx, k, g_idx);
+    stage(sb + lay.idx, v_idx, k, g_idx);
     if (scaled) {
       sb += 2 * lay.idx;
-      stage_rows(sb, k_scale, 4, 4, t0, n, page_tab, lane_p, kv, Kv, S, ps, n_pages);
-      stage_rows(sb + lay.scale, v_scale, 4, 4, t0, n, page_tab, lane_p, kv, Kv, S, ps,
-                 n_pages);
+      stage(sb, k_scale, 4, 4);
+      stage(sb + lay.scale, v_scale, 4, 4);
     }
     sm90::cp_async_commit();
   };
@@ -261,8 +228,8 @@ swan_chunk_mma_kernel(const float* __restrict__ q, const VT* __restrict__ k_vals
       __syncwarp();
       if (t0 + r < n_valid) {
         for (int e = sub; e < k; e += 4) {
-          k_e[r * RS + col(ki_s[r * k + e], dh)] = to_bf16(kv_s[r * k + e]);
-          v_e[r * RS + col(vi_s[r * k + e], dh)] = to_bf16(vv_s[r * k + e]);
+          k_e[r * RS + sm90::col(ki_s[r * k + e], dh)] = to_bf16(kv_s[r * k + e]);
+          v_e[r * RS + sm90::col(vi_s[r * k + e], dh)] = to_bf16(vv_s[r * k + e]);
         }
       }
     }
@@ -482,9 +449,9 @@ swan_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_v
     for (int e = tid; e < kBS * k; e += kThreads) {
       const int r = e / k, j = e % k, t = t0 + r;
       if (t < n_valid) {
-        const size_t row = sparse_row(page_tab, lane, kv, Kv, S, ps, n_pages, t);
-        k_s[r * KS + col(k_idx[row * k + j], dh)] = k_vals[row * k + j];
-        v_s[r * KS + col(v_idx[row * k + j], dh)] = v_vals[row * k + j];
+        const size_t row = sm90::sparse_row(page_tab, lane, kv, Kv, S, ps, n_pages, t);
+        k_s[r * KS + sm90::col(k_idx[row * k + j], dh)] = k_vals[row * k + j];
+        v_s[r * KS + sm90::col(v_idx[row * k + j], dh)] = v_vals[row * k + j];
       }
     }
     __syncthreads();
@@ -569,13 +536,6 @@ swan_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_v
   }
 }
 
-// The widest copy (16, 4 or 1 bytes) that splits every row of two leaves.
-int copy_width(const void* a, const void* b, int row_bytes) {
-  if (row_bytes % 16 == 0 && sm90::aligned(a, 16) && sm90::aligned(b, 16)) return 16;
-  if (row_bytes % 4 == 0 && sm90::aligned(a, 4) && sm90::aligned(b, 4)) return 4;
-  return 1;
-}
-
 template <typename VT>
 cudaError_t launch_mma(const void* q, const void* k_vals, const void* k_idx,
                        const void* v_vals, const void* v_idx, const void* k_scale,
@@ -595,8 +555,8 @@ cudaError_t launch_mma(const void* q, const void* k_vals, const void* k_idx,
       static_cast<const int*>(page_tab), static_cast<float*>(m_out),
       static_cast<float*>(l_out), static_cast<float*>(o_out), Kv, Q, dh, S, k, ps, n_pages,
       static_cast<float>(1.0 / sqrt(static_cast<double>(dh))),
-      copy_width(k_vals, v_vals, k * static_cast<int>(sizeof(VT))),
-      copy_width(k_idx, v_idx, k));
+      sm90::copy_width(k_vals, v_vals, k * static_cast<int>(sizeof(VT))),
+      sm90::copy_width(k_idx, v_idx, k));
   return cudaGetLastError();
 }
 

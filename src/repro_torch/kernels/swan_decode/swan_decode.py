@@ -9,10 +9,13 @@ contract of ``swan_decode_paged_pallas`` (same file :266): the packed
 prefix lives in a page pool [n_pages,Kv,ps,k] and sequence ``b``'s logical
 row ``t`` is row ``t % ps`` of page ``page_tab[b, t // ps]``.
 
-For CUDA tensors they launch ``csrc/swan_decode.cu`` (one block per
-(sequence, kv head), one body for both layouts; see the note at the top of
-that file) or raise; for CPU tensors they run the plain twins
-(``swan_decode_reference``, after ``gather_pages`` for the pool).
+For CUDA tensors they launch ``csrc/swan_decode.cu`` (split-S: one block
+per (sequence, kv head) and 256-row split of the packed prefix, one more
+for the ring, then a merge kernel over the splits in a fixed order; one
+body for both layouts; see the note at the top of that file) or raise;
+for CPU tensors they run the plain twins (``swan_decode_reference``, after
+``gather_pages`` for the pool).  The wrapper allocates the splits' f32
+workspace; the launch reads nothing back to the host.
 Arguments are checked the same way on both devices.
 """
 from __future__ import annotations
@@ -47,14 +50,20 @@ _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _V_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
             torch.float8_e4m3fn: 3}
 SUPPORTED_G = (1, 2, 4, 8)
-N_WARPS = 8                              # kWarps in the CUDA source
+# mirrors of the CUDA source's constants
+N_WARPS = 8                              # kWarps
+TILE_ROWS = 32                           # kTile: packed rows per staged tile
+STAGES = 2                               # kStages: staging buffers
+SPLIT_ROWS = 256                         # kSplitRows: prefix rows per split
+MAX_GRID_Y = 65535                       # splits + 1 per launch
 SMEM_PER_BLOCK = 232448                  # bytes a block may use on sm_90
 MAX_DH = 128                             # int8 indices address dh <= 128 columns
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.swan_decode_launch.argtypes = [i, i] + [p] * 14 + [i] * 9 + [p]
+    lib.swan_decode_launch.argtypes = ([i, i] + [p] * 15 + [ctypes.c_longlong]
+                                       + [i] * 9 + [p])
     lib.swan_decode_launch.restype = i
     lib.swan_decode_error_string.argtypes = [i]
     lib.swan_decode_error_string.restype = ctypes.c_char_p
@@ -66,17 +75,52 @@ KERNEL = CudaKernel("swan_decode", LIBRARY)                 # slab (B1)
 KERNEL_PAGED = CudaKernel("swan_decode_paged", LIBRARY)     # page pool (B2)
 
 
-def smem_bytes(G: int, dh: int, b: int) -> int:
-    """Shared memory of one block: q̂, the per-warp accumulators and
-    softmax stats, and the ring's scores (mirrors ``smem_bytes`` in the
-    CUDA source)."""
-    return 4 * (G * dh + N_WARPS * G * dh + 2 * N_WARPS * G + G + G * b)
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
 
-def precheck(*, G: int, dh: int, k_max: int, b: int) -> Dict[str, object]:
+def smem_bytes(G: int, dh: int, b: int, k: int, v_dtype: torch.dtype) -> int:
+    """Shared memory of one decode block (mirrors ``Smem`` in the CUDA
+    source): q̂ [dh][G], the warps' dense value rows [8][4][dh], (m, l)
+    and the tile scores, then one region used in turn: a prefix split's
+    two staging buffers (32 packed rows of k and v values, indices and
+    scales) or the ring split's scores [G][b], and the warps' accumulators
+    [8][dh][G] for the block's merge."""
+    vb = v_dtype.itemsize
+    stage = 2 * (_a16(TILE_ROWS * k * vb) + _a16(TILE_ROWS * k) + TILE_ROWS * 4)
+    rows_per_warp = TILE_ROWS // N_WARPS
+    row_stride = (dh + 3) // 4 * 4
+    return (_a16(4 * G * dh) + 4 * N_WARPS * rows_per_warp * row_stride
+            + _a16(4 * 2 * N_WARPS * G) + _a16(4 * N_WARPS * rows_per_warp * G)
+            + max(STAGES * stage, _a16(4 * G * b), 4 * N_WARPS * G * dh))
+
+
+def n_splits(S: int) -> int:
+    """Prefix splits of a launch over S logical rows (the ring is one more)."""
+    return -(-S // SPLIT_ROWS)
+
+
+def merge_smem_bytes(G: int, S: int) -> int:
+    """Shared memory of one merge block (mirrors ``merge_smem`` in the CUDA
+    source): every split's max and weight per query, and the ring's."""
+    return 4 * (2 * n_splits(S) + 3) * G
+
+
+def workspace_bytes(B: int, Kv: int, G: int, dh: int, S: int) -> int:
+    """The f32 partials (acc [dh][G], m [G], l [G]) of every split of every
+    (sequence, kv head): the workspace the wrapper allocates per launch."""
+    return 4 * B * Kv * (n_splits(S) + 1) * G * (dh + 2)
+
+
+def precheck(*, G: int, dh: int, k_max: int, b: int, v_dtype: torch.dtype,
+             S: int) -> Dict[str, object]:
     """Static launch validation (the port of the TPU kernel's ``precheck``,
-    budgeted against a Hopper block's shared memory).  Returns
-    ``{"errors": [...], "smem_bytes": int}``."""
+    budgeted against a Hopper block's shared memory for ``v_dtype`` values).
+    ``S`` is the sparse extent (``Pg * page_size`` for the paged kernel): it
+    sets the number of splits, so the grid and the merge kernel's shared
+    memory.  Returns ``{"errors": [...], "smem_bytes": int,
+    "merge_smem_bytes": int, "workspace_bytes": int}``, the workspace per
+    (sequence, kv head)."""
     errors: List[str] = []
     if not 1 <= k_max <= dh:
         errors.append(f"k_max={k_max} must lie in [1, dh={dh}]")
@@ -86,11 +130,18 @@ def precheck(*, G: int, dh: int, k_max: int, b: int) -> Dict[str, object]:
         errors.append(f"query group G={G} not in {SUPPORTED_G}")
     if b < 1:
         errors.append("empty ring (b=0): the kernel needs b >= 1")
-    smem = smem_bytes(G, dh, b)
+    if n_splits(S) + 1 > MAX_GRID_Y:
+        errors.append(f"S={S} needs {n_splits(S) + 1} splits > {MAX_GRID_Y}")
+    smem = smem_bytes(G, dh, b, k_max, v_dtype)
     if smem > SMEM_PER_BLOCK:
         errors.append(f"shared memory {smem} B exceeds {SMEM_PER_BLOCK} B "
-                      f"(G={G}, dh={dh}, b={b})")
-    return {"errors": errors, "smem_bytes": smem}
+                      f"(G={G}, dh={dh}, b={b}, k={k_max}, {v_dtype})")
+    merge = merge_smem_bytes(G, S)
+    if merge > SMEM_PER_BLOCK:
+        errors.append(f"the merge kernel's shared memory {merge} B exceeds "
+                      f"{SMEM_PER_BLOCK} B (G={G}, {n_splits(S)} splits)")
+    return {"errors": errors, "smem_bytes": smem, "merge_smem_bytes": merge,
+            "workspace_bytes": workspace_bytes(1, 1, G, dh, S)}
 
 
 def _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
@@ -149,7 +200,9 @@ def _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
         raise ValueError("all operands must be on q's device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
-    errs = precheck(G=G, dh=dh, k_max=k, b=b)["errors"]
+    S = R if page_tab is None else page_tab.shape[1] * R
+    errs = precheck(G=G, dh=dh, k_max=k, b=b, v_dtype=k_vals.dtype,
+                    S=S)["errors"]
     if errs:
         raise ValueError("; ".join(errs))
 
@@ -157,8 +210,9 @@ def _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
 def _launch(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, buf_k,
             buf_v, buf_pos, pos, sp_len, k_scale, v_scale,
             page_tab) -> torch.Tensor:
-    """Launch the decode kernel on q's stream (slab when ``page_tab`` is
-    None); raises on a refused launch and counts the launch."""
+    """Launch the decode kernels (splits, then their merge) on q's stream
+    (slab when ``page_tab`` is None), with a workspace from ``torch.empty``
+    on that stream; raises on a refused launch and counts the launch."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, Kv, G, dh = q.shape
@@ -169,6 +223,8 @@ def _launch(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, buf_k,
         ps, n_pages = k_vals.shape[2], k_vals.shape[0]
         S = page_tab.shape[1] * ps
     out = torch.empty_like(q)
+    ws_bytes = workspace_bytes(B, Kv, G, dh, S)
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=q.device)
     lib = kernel.lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -181,7 +237,8 @@ def _launch(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, buf_k,
             buf_k.data_ptr(), buf_v.data_ptr(), buf_pos.data_ptr(),
             pos.data_ptr(), sp_len.data_ptr(),
             None if page_tab is None else page_tab.data_ptr(), out.data_ptr(),
-            B, Kv, G, dh, S, k, buf_k.shape[2], ps, n_pages, stream)
+            ws.data_ptr(), ws_bytes, B, Kv, G, dh, S, k, buf_k.shape[2], ps,
+            n_pages, stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name} launch failed: "
                            + lib.swan_decode_error_string(err).decode())

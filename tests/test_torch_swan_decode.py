@@ -147,9 +147,43 @@ def test_wrapper_rejects_bad_operands(mutate, err):
 
 
 def test_precheck_budget():
-    ok = precheck(G=4, dh=128, k_max=64, b=128)
+    bf = {"v_dtype": torch.bfloat16, "S": 4096}
+    ok = precheck(G=4, dh=128, k_max=64, b=128, **bf)
     assert not ok["errors"] and ok["smem_bytes"] < 48 * 1024
-    assert precheck(G=3, dh=128, k_max=64, b=128)["errors"]
-    assert precheck(G=4, dh=256, k_max=64, b=128)["errors"]
-    assert precheck(G=4, dh=64, k_max=65, b=128)["errors"]
-    assert precheck(G=8, dh=128, k_max=64, b=8192)["errors"]   # > 227 KB
+    assert precheck(G=3, dh=128, k_max=64, b=128, **bf)["errors"]
+    assert precheck(G=4, dh=256, k_max=64, b=128, **bf)["errors"]
+    assert precheck(G=4, dh=64, k_max=65, b=128, **bf)["errors"]
+    assert precheck(G=8, dh=128, k_max=64, b=8192, **bf)["errors"]   # > 227 KB
+
+
+@pytest.mark.parametrize("v_dtype, vb", [
+    (torch.float32, 4), (torch.bfloat16, 2), (torch.int8, 1),
+    (torch.float8_e4m3fn, 1)])
+def test_precheck_budget_of_each_value_type(v_dtype, vb):
+    # the serve shape: q^ 2 KB, the warps' dense value rows 16 KB, (m, l)
+    # and tile scores, then the largest of two staging buffers of 32 rows
+    # (vals, idx, scales of k and v), the ring's scores and the warps'
+    # accumulators
+    got = precheck(G=4, dh=128, k_max=64, b=128, v_dtype=v_dtype, S=4096)
+    stage = 2 * (32 * 64 * vb + 32 * 64 + 32 * 4)
+    assert not got["errors"]
+    assert got["smem_bytes"] == (2048 + 16384 + 256 + 512
+                                 + max(2 * stage, 2048, 16384))
+    # the merge block: a max and a weight per split and query, and the ring's
+    assert got["merge_smem_bytes"] == 4 * (2 * 16 + 3) * 4
+    # 16 prefix splits of 256 rows and the ring, acc [dh][G] + m + l each
+    assert got["workspace_bytes"] == 4 * 17 * 4 * 130
+    for G in (1, 2, 4):                          # every instance fits, k = dh
+        assert not precheck(G=G, dh=128, k_max=128, b=128, v_dtype=v_dtype,
+                            S=1 << 20)["errors"]
+    # G = 8: the merge block's 4 * (2 * n_split + 3) * 8 bytes cap the
+    # splits at 3630 (232416 B); one more row needs a 3631st (232480 B)
+    edge = 3630 * 256
+    assert not precheck(G=8, dh=128, k_max=128, b=128, v_dtype=v_dtype,
+                        S=edge)["errors"]
+    for S in (edge + 1, 1 << 20):
+        errs = precheck(G=8, dh=128, k_max=128, b=128, v_dtype=v_dtype,
+                        S=S)["errors"]
+        assert len(errs) == 1 and "merge" in errs[0]
+    assert precheck(G=4, dh=128, k_max=64, b=128, v_dtype=v_dtype,
+                    S=256 * 65535)["errors"]      # more splits than a grid holds
