@@ -23,12 +23,12 @@ Phases, each of which must pass (any failure exits non-zero):
               beside the plain version's, a PyTorch yardstick
               (``library_ms``) and the bound (the port's roofline:
               ``repro_torch/analysis/roofline.py``); for the decode
-              kernels also the host's µs per wrapper call and the device
-              µs of their split and merge kernels (profiler).
+              kernels and winnowing also the host's µs per wrapper call
+              and the device µs of their kernels (profiler).
    bench    — the kernel microbenchmark
               (``repro_torch.benchmarks.bench_kernels.run()``) at full
               llama3-8b width: every kernel launched, every roofline row
-              finite and positive, the H100 floors of B1–B5 met (launch
+              finite and positive, the H100 floors of B1–B6 met (launch
               counts zeroed just before).
 4. serve    — full-width llama3-8b (bf16, seeded random weights) served
               through the lockstep SWAN path: calibrate, absorb,
@@ -361,12 +361,12 @@ def timed_rows(label, fn, plain_fn, lib_fn, nbytes, flops, flush,
             "library_ms": lib_ms}
 
 
-def host_device_us(fn, flush, ws_bytes, n=50):
-    """Per call of a decode wrapper ``fn``: the host's µs to issue it
+def host_device_us(fn, flush, kernel, ws_bytes=0, n=50):
+    """Per call of a kernel wrapper ``fn``: the host's µs to issue it
     (``n`` calls back to back, the card left to run behind), the device µs
-    of its split and merge kernels (torch.profiler, L2 flushed before each
-    call), and the host's µs for one ``torch.empty`` of its ``ws_bytes``
-    workspace."""
+    of the kernels whose names hold ``kernel`` (torch.profiler, L2 flushed
+    before each call), and the host's µs for one ``torch.empty`` of its
+    ``ws_bytes`` workspace (None for a wrapper without one)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -381,8 +381,8 @@ def host_device_us(fn, flush, ws_bytes, n=50):
         return dt / n * 1e6
 
     host_us = host(fn)
-    ws_us = host(lambda: torch.empty(ws_bytes // 4, dtype=torch.float32,
-                                     device="cuda"))
+    ws_us = (host(lambda: torch.empty(ws_bytes // 4, dtype=torch.float32,
+                                      device="cuda")) if ws_bytes else None)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -390,8 +390,7 @@ def host_device_us(fn, flush, ws_bytes, n=50):
             fn()
         torch.cuda.synchronize()
     dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and "swan_decode_" in e.key) / n
+                 if e.device_type == DeviceType.CUDA and kernel in e.key) / n
     return host_us, dev_us, ws_us
 
 
@@ -399,7 +398,7 @@ def log_host_device(label, fn, a, flush, S):
     from repro_torch.kernels.swan_decode.swan_decode import workspace_bytes
     B_, Kv_, G_, dh_ = a["q"].shape
     host_us, dev_us, ws_us = host_device_us(
-        fn, flush, workspace_bytes(B_, Kv_, G_, dh_, S))
+        fn, flush, "swan_decode_", workspace_bytes(B_, Kv_, G_, dh_, S))
     log(f"  {label}: host {host_us:.1f} us per wrapper call (of which "
         f"{ws_us:.1f} us the workspace's torch.empty), device {dev_us:.1f} us "
         f"per call (split + merge kernels, profiler)")
@@ -695,25 +694,69 @@ def flash_phase():
 
 # B6 at the bench's winnowing shape: 4 x 8 heads x 2048 vectors of 128
 PB_, PS_, PK_ = 4, 2048, 64
+# B6 at the edges, (B, Kv, S, dh): dh 64 and 80 (columns padded to 128), S
+# not a multiple of the kernel's 64-vector tile, one sequence and one kv
+# head, dh = 20 (rows not whole 16-byte pieces: staged element by element)
+P_EDGES = ((2, 2, 200, 64), (1, 3, 130, 80), (1, 1, 100, DH), (2, 2, 96, 20))
 
 
-def prune_inputs(dt, gen, cpu_gen):
+def prune_inputs(dt, gen, cpu_gen, B_=PB_, Kv_=KV, S_=PS_, dh=DH):
     """(x with distinct magnitudes in every vector, a signed permutation P,
     x from a normal, a random orthogonal P); P f32."""
     import torch
-    perm = torch.stack([torch.randperm(DH, generator=cpu_gen) for _ in range(KV)])
-    sign = torch.randint(0, 2, (KV, DH), generator=cpu_gen).float() * 2 - 1
-    p_perm = torch.zeros(KV, DH, DH)
+    perm = torch.stack([torch.randperm(dh, generator=cpu_gen) for _ in range(Kv_)])
+    sign = torch.randint(0, 2, (Kv_, dh), generator=cpu_gen).float() * 2 - 1
+    p_perm = torch.zeros(Kv_, dh, dh)
     p_perm.scatter_(2, perm[:, :, None], sign[:, :, None])     # P[j, d, perm[d]]
-    a = torch.randn((KV, DH, DH), generator=cpu_gen)
+    a = torch.randn((Kv_, dh, dh), generator=cpu_gen)
     qm, r = torch.linalg.qr(a)
     p_orth = qm * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None]
-    mags = torch.rand((PB_, KV, PS_, DH), generator=gen, device="cuda").argsort(-1) + 1
+    mags = torch.rand((B_, Kv_, S_, dh), generator=gen, device="cuda").argsort(-1) + 1
     signs = torch.randint(0, 2, mags.shape, generator=gen, device="cuda") * 2 - 1
     x_distinct = (mags * signs).float() / 32                # exact in bf16
-    x_normal = torch.randn((PB_, KV, PS_, DH), generator=gen, device="cuda")
+    x_normal = torch.randn((B_, Kv_, S_, dh), generator=gen, device="cuda")
     return (x_distinct.to(dt), p_perm.cuda(), x_normal.to(dt),
             p_orth.contiguous().cuda())
+
+
+def prune_check(kind, what, inputs, ks, max_err):
+    """B6 against its plain twin on one shape, for each k of ``ks``."""
+    import torch
+    from repro_torch.device import f32_matmul
+    from repro_torch.kernels.swan_prune.swan_prune import (swan_prune,
+                                                           swan_prune_plain)
+    x_d, p_perm, x_n, p_orth = inputs
+    dh = x_d.shape[-1]
+    with f32_matmul():
+        srt = torch.sort(torch.einsum("bjsd,jde->bjse", x_n.float(), p_orth
+                                      ).abs(), dim=-1, descending=True).values
+    for k in ks:
+        got = swan_prune(x_d, p_perm, k)
+        want = swan_prune_plain(x_d, p_perm, k)
+        torch.cuda.synchronize()
+        exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        check(exact, f"swan_prune[{kind}] {what} k={k}: signed permutation "
+                     "not bit-equal")
+        vals, idx = swan_prune(x_n, p_orth, k)
+        wv, wi = swan_prune_plain(x_n, p_orth, k)
+        torch.cuda.synchronize()
+        n = min(k, dh - 1)
+        clear = ((srt[..., :n] - srt[..., 1:n + 1]).amin(-1)
+                 > 1e-5 * srt[..., 0])
+        same = (idx == wi).all(-1)
+        err = (vals.float() - wv.float()).abs()[same]
+        ok_vals = (bool((err <= 2e-5).all()) if kind == "f32" else bool(
+            (err <= 1e-6 + BF16_RTOL * wv.float().abs()[same]).all()))
+        log(f"  swan_prune[{kind:4s}] {what} k={k:3d}: signed permutation == "
+            f"plain bit for bit: {exact}; random orthogonal P: idx equal on "
+            f"{int(same.sum())} of {same.numel()} vectors, {int((~clear).sum())}"
+            f" near-tie vectors (gap <= 1e-5 max|x̂|), {int((~same & clear).sum())}"
+            f" clear vectors differ; vals max_abs_err {err.max().item():.3e}")
+        check(bool((same | ~clear).all()),
+              f"swan_prune[{kind}] {what} k={k}: idx differ off near-ties")
+        check(ok_vals and bool(torch.isfinite(vals).all()),
+              f"swan_prune[{kind}] {what} k={k}: vals disagree with plain")
+        max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
 
 
 def prune_phase():
@@ -722,49 +765,32 @@ def prune_phase():
     a random orthogonal P, idx equal on every vector whose twin-side gaps
     between consecutive sorted |x̂| (positions 0..k) exceed 1e-5·max|x̂|,
     the others counted, and vals within 2e-5 (f32) or one bf16 rounding
-    step where idx agree.  Then its time at the bench shape."""
+    step where idx agree; at the bench shape and at ``P_EDGES``.  Then its
+    time at the bench shape: event, device (profiler) and host per call."""
     import torch
     from repro_torch.analysis import roofline as rl
-    from repro_torch.device import f32_matmul
-    from repro_torch.kernels.swan_prune.swan_prune import (swan_prune,
+    from repro_torch.kernels.swan_prune.swan_prune import (KERNEL, smem_bytes,
+                                                           swan_prune,
                                                            swan_prune_plain)
+    for code, nb in ((0, 4), (1, 2)):
+        got = KERNEL.lib().swan_prune_smem_bytes(code)
+        check(got == smem_bytes(nb), f"swan_prune: the kernel takes {got} B "
+                                     f"of shared memory, precheck budgets "
+                                     f"{smem_bytes(nb)} B")
     gen = torch.Generator(device="cuda").manual_seed(4)
     cpu_gen = torch.Generator().manual_seed(4)
     max_err = {}
     for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        x_d, p_perm, x_n, p_orth = prune_inputs(dt, gen, cpu_gen)
-        with f32_matmul():
-            srt = torch.sort(torch.einsum("bjsd,jde->bjse", x_n.float(), p_orth
-                                          ).abs(), dim=-1, descending=True).values
-        for k in (1, PK_, DH):
-            got = swan_prune(x_d, p_perm, k)
-            want = swan_prune_plain(x_d, p_perm, k)
-            torch.cuda.synchronize()
-            exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-            check(exact, f"swan_prune[{kind}] k={k}: signed permutation not bit-equal")
-            vals, idx = swan_prune(x_n, p_orth, k)
-            wv, wi = swan_prune_plain(x_n, p_orth, k)
-            torch.cuda.synchronize()
-            n = min(k, DH - 1)
-            clear = ((srt[..., :n] - srt[..., 1:n + 1]).amin(-1)
-                     > 1e-5 * srt[..., 0])
-            same = (idx == wi).all(-1)
-            err = (vals.float() - wv.float()).abs()[same]
-            ok_vals = (bool((err <= 2e-5).all()) if kind == "f32" else bool(
-                (err <= 1e-6 + BF16_RTOL * wv.float().abs()[same]).all()))
-            log(f"  swan_prune[{kind:4s}] k={k:3d}: signed permutation == plain "
-                f"bit for bit: {exact}; random orthogonal P: idx equal on "
-                f"{int(same.sum())} of {same.numel()} vectors, {int((~clear).sum())}"
-                f" near-tie vectors (gap <= 1e-5 max|x̂|), {int((~same & clear).sum())}"
-                f" clear vectors differ; vals max_abs_err {err.max().item():.3e}")
-            check(bool((same | ~clear).all()),
-                  f"swan_prune[{kind}] k={k}: idx differ off near-ties")
-            check(ok_vals and bool(torch.isfinite(vals).all()),
-                  f"swan_prune[{kind}] k={k}: vals disagree with plain")
-            max_err[kind] = max(max_err.get(kind, 0.0), err.max().item())
+        inputs = prune_inputs(dt, gen, cpu_gen)
+        prune_check(kind, f"B={PB_} Kv={KV} S={PS_} dh={DH}", inputs,
+                    (1, PK_, DH), max_err)
+        for B_, Kv_, S_, dh in P_EDGES:
+            prune_check(kind, f"B={B_} Kv={Kv_} S={S_} dh={dh}",
+                        prune_inputs(dt, gen, cpu_gen, B_, Kv_, S_, dh),
+                        sorted({1, 7, dh // 2, dh}), max_err)
 
     # timing at the bench shape (bf16 x, f32 P, k = 64)
-    x, p = x_n, p_orth
+    x, p = inputs[2], inputs[3]
 
     def lib_fn():       # matmul, topk, gather (+ abs and casts)
         xh = torch.matmul(x.float(), p)
@@ -779,6 +805,11 @@ def prune_phase():
                      lambda: swan_prune_plain(x, p, PK_), lib_fn, nbytes,
                      flops, flush,
                      lib_label="3 library calls (matmul, topk, gather; + abs, casts)")
+    host_us, dev_us, _ = host_device_us(lambda: swan_prune(x, p, PK_), flush,
+                                        "swan_prune_")
+    log(f"  swan_prune[bf16]: host {host_us:.1f} us per wrapper call, device "
+        f"{dev_us:.1f} us per call (profiler; "
+        f"{100 * row['bound_ms'] * 1e3 / dev_us:.2f}% of bound by device time)")
     del flush
     return max_err, row
 
@@ -1197,7 +1228,8 @@ def exact_phase(kernels):
 
 # the tensor-core instances: each must hold mma instructions in its SASS and
 # spill nothing
-TENSOR_CORE_INSTANCES = ("flash_prefill_bf16_kernel", "swan_chunk_mma_kernel")
+TENSOR_CORE_INSTANCES = ("flash_prefill_bf16_kernel", "swan_chunk_mma_kernel",
+                         "swan_prune_bf16_kernel")
 # every instance of these spills nothing either (B1/B2's splits and merge)
 NO_SPILL_INSTANCES = TENSOR_CORE_INSTANCES + ("swan_decode_kernel",
                                               "swan_decode_merge_kernel")
@@ -1364,8 +1396,9 @@ def main(argv=None) -> int:
             f"(Sq, Sk) in {F_CASES}; causal and full; f32 and bf16)")
         e, rows["flash_attention"] = flash_phase()
         err["flash_attention"] = e["bf16"]
-        log(f"[kernels] swan_prune vs plain (B={PB_} Kv={KV} S={PS_} dh={DH}; "
-            f"k in (1, {PK_}, {DH}); f32 and bf16)")
+        log(f"[kernels] swan_prune vs plain (B={PB_} Kv={KV} S={PS_} dh={DH}, "
+            f"k in (1, {PK_}, {DH}); edges (B, Kv, S, dh) in {P_EDGES}; f32 "
+            "and bf16)")
         e, rows["swan_prune"] = prune_phase()
         err["swan_prune"] = e["bf16"]
     if "bench" in phases:

@@ -304,13 +304,13 @@ def _legacy_paths(sh: Shapes, dev, prune_us: float) -> None:
 # what each redesign reached in this bench on an NVIDIA H100 80GB HBM3 at a
 # 700 W power limit, measured by chip_smoke.py (PERF.md §6): the tensor-core
 # kernels 0.1799, 0.0295, 0.0275; the split-S decode kernels 0.0239, the
-# lowest row either reached over two full runs (paged k=64 over 32 pages).
+# lowest row either reached over two full runs (paged k=64 over 32 pages);
+# fused winnowing 0.1033 (its sorting-network redesign's first full run).
 # The decode rows are timed with the wrapper's host work, which outlasts
 # the L2 flush on a slow host, so both share that lowest row.
-# The other kernels are held to a finite, positive fraction only.
 H100_FLOORS = {"flash_prefill": 0.09, "swan_chunk_stats": 0.0147,
                "swan_chunk_stats_paged": 0.0137, "swan_decode": 0.012,
-               "swan_decode_paged": 0.012}
+               "swan_decode_paged": 0.012, "swan_prune": 0.0516}
 
 
 def run(smoke: bool = False, device: DeviceLike = None) -> BenchRecorder:

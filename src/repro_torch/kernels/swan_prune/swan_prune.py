@@ -10,10 +10,12 @@ is the caller's contract (``S % min(tile, S) == 0``, as the reference
 asserts); the CUDA row tile is the kernel's own.  The reference's
 ``interpret`` flag has no counterpart: the device of ``x`` decides.
 
-For CUDA tensors it launches ``csrc/swan_prune.cu`` (one block per (64
-vectors, kv head, batch) holding ``P[kv]`` in shared memory, one warp per
-vector, the top-k as a rank; see the note at the top of that file) or
-raises; for CPU tensors it runs the plain twin ``swan_prune_plain``.
+For CUDA tensors it launches ``csrc/swan_prune.cu`` (persistent blocks,
+one an SM, each walking 64-vector tiles of one kv head; bf16 x rotates on
+the tensor cores against ``P[kv]`` split once into three bf16 parts, f32 x
+on CUDA cores; the top-k is a bitonic sorting network on one 64-bit key
+per element; see the note at the top of that file) or raises; for CPU
+tensors it runs the plain twin ``swan_prune_plain``.
 Arguments are checked the same way on both devices.
 """
 from __future__ import annotations
@@ -31,15 +33,18 @@ from repro_torch.kernels.swan_prune.ref import swan_prune_reference
 swan_prune_plain = swan_prune_reference
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
-N_WARPS = 8                              # kWarps in the CUDA source
+TILE_ROWS = 64                           # kRows in the CUDA source
+MAX_DH = 128                             # kD: int8 indices address dh <= 128
+P_PARTS = 3                              # kParts: bf16 parts of f32 P
 SMEM_PER_BLOCK = 232448                  # bytes a block may use on sm_90
-MAX_DH = 128                             # int8 indices address dh <= 128 columns
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.swan_prune_launch.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
     lib.swan_prune_launch.restype = i
+    lib.swan_prune_smem_bytes.argtypes = [i]
+    lib.swan_prune_smem_bytes.restype = i
     lib.swan_prune_error_string.argtypes = [i]
     lib.swan_prune_error_string.restype = ctypes.c_char_p
 
@@ -49,13 +54,18 @@ LIBRARY = CudaLibrary("swan_prune",
 KERNEL = CudaKernel("swan_prune", LIBRARY)                       # B6
 
 
-def smem_bytes(dh: int) -> int:
-    """Shared memory of one block: ``P[kv]`` in f32 and each warp's vector
-    and magnitudes."""
-    return 4 * (dh * dh + 2 * N_WARPS * dh)
+def smem_bytes(x_bytes: int) -> int:
+    """Shared memory of one block of the instance for x of ``x_bytes`` an
+    element (2: bf16, 4: f32), at dh padded to ``MAX_DH``: ``P[kv]`` (three
+    bf16 parts, or f32), two staged x tiles and two f32 x̂ tiles, rows
+    padded by 16 bytes (the CUDA source's ``smem_bytes``)."""
+    p = (P_PARTS * MAX_DH * (MAX_DH + 8) * 2 if x_bytes == 2
+         else MAX_DH * MAX_DH * 4)
+    x = 2 * TILE_ROWS * (MAX_DH + 16 // x_bytes) * x_bytes
+    return p + x + 2 * TILE_ROWS * (MAX_DH + 8) * 4
 
 
-def precheck(*, dh: int, k_max: int) -> Dict[str, object]:
+def precheck(*, dh: int, k_max: int, x_bytes: int = 2) -> Dict[str, object]:
     """Static launch validation, budgeted against a Hopper block's shared
     memory.  Returns ``{"errors": [...], "smem_bytes": int}``."""
     errors: List[str] = []
@@ -63,7 +73,7 @@ def precheck(*, dh: int, k_max: int) -> Dict[str, object]:
         errors.append(f"k_max={k_max} must lie in [1, dh={dh}]")
     if dh > MAX_DH:
         errors.append(f"dh={dh} > {MAX_DH}: int8 indices cannot address it")
-    smem = smem_bytes(dh)
+    smem = smem_bytes(x_bytes)
     if smem > SMEM_PER_BLOCK:
         errors.append(f"shared memory {smem} B exceeds {SMEM_PER_BLOCK} B")
     return {"errors": errors, "smem_bytes": smem}
@@ -82,7 +92,7 @@ def _check(x, p_rot, k_max: int, tile: int) -> None:
         raise TypeError(f"x dtype {x.dtype} not in {list(_TYPES)}")
     if p_rot.device != x.device:
         raise ValueError("x and p_rot must be on one device")
-    errs = precheck(dh=dh, k_max=k_max)["errors"]
+    errs = precheck(dh=dh, k_max=k_max, x_bytes=x.element_size())["errors"]
     if errs:
         raise ValueError("; ".join(errs))
 

@@ -322,8 +322,9 @@ def _swan_layer_prefill_chunk(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
                  if kernel_supported(swan, view["k"]["vals"]) else None)
         o = swa.swan_chunk_prefill_attention(q_hat, k_hat, v, view, swan,
                                              start, sparse_stats=stats)
-        _, packed_k, packed_v, ring_new = hc.chunk_evict_winnow(
+        _, packed_k, packed_v, upd = hc.chunk_evict_winnow(
             ring, swan, k_hat, v, start, true_len, k_act=k_act)
+        ring_new = {**ring, **upd}                       # upd is {} at b == 0
         hc.write_sparse_rows_(cache_l["k"], packed_k, lanes["slot_h"],
                               lanes["dest_h"])
         hc.write_sparse_rows_(cache_l["v"], packed_v, lanes["slot_h"],

@@ -43,6 +43,13 @@ CONFIGS = {
                                       prefill_slots=2),
     "dense_chunked_2_srf": dict(prefill_chunk=8, prefill_slots=2,
                                 admission="srf"),
+    # no ring: every chunk token is winnowed at once (``swan`` overrides
+    # the SwanConfig fields that ``_engine`` sets)
+    "slab_chunked_2_buffer0": dict(prefill_chunk=8, prefill_slots=2,
+                                   swan=dict(buffer=0)),
+    "paged_chunked_2_buffer0": dict(paged=True, page_size=16,
+                                    prefill_chunk=8, prefill_slots=2,
+                                    swan=dict(buffer=0)),
 }
 
 
@@ -78,7 +85,8 @@ def _requests(cls, prompts, name, eos=None):
 def _engine(cls, swan_cls, cfg, weights, name, **extra):
     kw = dict(CONFIGS[name])
     dense = name.startswith("dense")
-    swan = None if dense else swan_cls(k_max=8, buffer=4)
+    swan = None if dense else swan_cls(**{"k_max": 8, "buffer": 4,
+                                          **kw.pop("swan", {})})
     return cls(cfg, weights["params" if dense else "absorbed"], swan=swan,
                projections=None if dense else weights["pj"], max_seq=64,
                n_slots=2, **kw, **extra)
