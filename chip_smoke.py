@@ -31,22 +31,43 @@ Phases, each of which must pass (any failure exits non-zero):
               finite and positive, the H100 floors of B1–B6 met (launch
               counts zeroed just before).
 4. serve    — full-width llama3-8b (bf16, seeded random weights) served
-              through the lockstep SWAN path: calibrate, absorb,
-              ``ServeSession.generate``.  The kernel launch counts are zeroed
-              just before ``generate`` and read just after.
+              through the lockstep SWAN path, eagerly (``graphs=False``):
+              calibrate, absorb, ``ServeSession.generate``.  The kernel
+              launch counts are zeroed just before ``generate`` and read
+              just after.
 5. exact    — 4 layers at full width, SWAN at full retention (k = d_head)
               against the dense-cache session: the decode logits must agree
               (Lemmas A.1/A.2), with the decode kernel on the path.
 6. engine   — the same model through ``ServeEngine`` with chunked
-              concurrent prefill, on the slab and then on the paged pool:
-              identical tokens, 32 launches of each layout's kernels per
-              dispatch (counts zeroed before each run, read after).
-7. chunk_exact — 4 layers at full retention: a prompt prefilled in two
+              concurrent prefill, eagerly, on the slab and then on the
+              paged pool: identical tokens, 32 launches of each layout's
+              kernels per dispatch (counts zeroed before each run, read
+              after).
+7. graphs   — the same model through CUDA graphs (``runtime.graphs``):
+              the lockstep session graphed against eager in this call
+              (prefill and first decode logits, tokens, ms/step, which
+              must be at most 0.6 x eager; a profile whose B1 executions
+              are 32 per step); the engine graphed on the slab and the
+              paged pool after ``warmup(max_prompt_len=2048)`` (census
+              at or above ``expected`` in every bucket), serving the
+              engine trace with the eager runs' tokens, dispatches and
+              ``cache_report()`` and 32 launches per dispatch counted
+              through the replays (paged with ``async_fetch=True``); then
+              on the slab a shuffled mixed trace that must capture no
+              graph; on each layout a profile of graphed engine steps
+              (B1 and B3, or B2 and B4, executed 32 times per dispatch;
+              a short window is held against the per-replay records and
+              another is traced); last, monolithic admission
+              graphed without a warmup (prefill and insert graphs captured
+              at first use) against eager, slab and paged.  Warmup seconds,
+              graph counts, graph memory, and eager vs graphed step times.
+8. chunk_exact — 4 layers at full retention: a prompt prefilled in two
               chunks (slab, paged) against the dense monolithic prefill.
 
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
-that ran the kernel — the bench, the lockstep serve, the engines — and
+that ran the kernel — the bench, the lockstep serve, the engines, graphed
+and eager — and
 ``launches_by_path`` per path), and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
@@ -59,6 +80,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -888,7 +910,7 @@ def serve_phase(kernels, model):
     cfg, params, projections = model
     swan = SwanConfig(k_max=K, buffer=BUF, mode="topk")
     sess = ServeSession(cfg, params, swan=swan, projections=projections,
-                        max_seq=S, batch=B, device="cuda")
+                        max_seq=S, batch=B, graphs=False, device="cuda")
     prompt = make_batch(cfg, B, PROMPT, seed=11, device="cuda")
 
     prefill_ms = []
@@ -937,29 +959,78 @@ def serve_phase(kernels, model):
     return launches
 
 
-def trace_steps(step, steps: int, what: str) -> None:
+def trace_steps(step, steps: int, what: str, graphs=None) -> dict:
     """Trace ``steps`` calls of ``step`` with torch.profiler: the ops by
     device time, the card's busy share of the traced wall time and the SWAN
     kernels' share of the device time.  The profiler slows the host, so the
-    busy share is a floor."""
+    busy share is a floor.  Returns the per-step aten ops and CUDA API
+    calls and the device executions of each kernel over the window
+    (``kernels``: name prefix -> count).  Given the ``GraphSet`` that
+    ``step`` replays, it also returns ``replays``: each replay's graph key
+    beside the device records the profiler tied to its graph launch
+    (None when the launches and the replays do not pair up)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    keys = []
+    if graphs is not None:
+        run = graphs.run
+
+        def logged(family, key, *a, **kw):
+            keys.append((family, key))
+            return run(family, key, *a, **kw)
+        graphs.run = logged
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if graphs is not None:
+            del graphs.run
     ka = prof.key_averages()
     log(ka.table(sort_by="self_device_time_total", row_limit=12))
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     n_ops = sum(e.count for e in ka if e.key.startswith("aten::")) / steps
+    n_api = sum(e.count for e in ka if e.device_type == DeviceType.CPU
+                and e.key.startswith("cuda")) / steps
+    counts = {name: sum(e.count for e in kernels if name in e.key)
+              for name in ("swan_decode_kernel", "swan_decode_merge_kernel",
+                           "swan_chunk_mma_kernel", "swan_chunk_f32_kernel")}
+    stats = {"aten_ops": n_ops, "cuda_api": n_api, "kernels": counts,
+             "busy_ms": busy / steps, "wall_ms": wall_ms / steps,
+             "replays": None}
+    if graphs is not None:
+        # a device record carries the correlation id of the API call that
+        # launched it: here the replay's cudaGraphLaunch
+        events = prof.events()
+        launch = sorted((e for e in events if e.device_type == DeviceType.CPU
+                         and e.name.startswith("cudaGraphLaunch")),
+                        key=lambda e: e.time_range.start)
+        records = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA:
+                records.setdefault(e.id, Counter())[e.name] += 1
+        if len(launch) == len(keys) and any(e.id in records for e in launch):
+            stats["replays"] = [(k, records.get(e.id, Counter()))
+                                for k, e in zip(keys, launch)]
+            per = {}
+            for k, rec in stats["replays"]:
+                per.setdefault(k, []).append(sum(rec.values()))
+            log(f"  profile: {len(keys)} replays paired with their device "
+                f"records; records per replay of each graph: "
+                f"{ {f'{k[0]}{k[1]}': v for k, v in per.items()} }")
+        else:
+            log(f"  profile: {len(launch)} graph launches traced against "
+                f"{len(keys)} replays; no per-replay records")
     if busy == 0:
         log("  profile: the profiler traced no device time")
-        return
+        return stats
     shares = []
     # every instance of a library's kernels: swan_decode_kernel<...>,
     # swan_chunk_mma_kernel<...> and swan_chunk_f32_kernel
@@ -971,7 +1042,9 @@ def trace_steps(step, steps: int, what: str) -> None:
     log(f"  profile: {steps} {what}, {wall_ms / steps:.1f} ms/step wall "
         f"(traced), card busy {busy / steps:.1f} ms/step "
         f"({100 * busy / wall_ms:.1f}%), {', '.join(shares)}, "
-        f"{n_ops:.0f} aten ops/step")
+        f"{n_ops:.0f} aten ops/step, {n_api:.0f} CUDA API calls/step; "
+        f"kernel executions {counts}")
+    return stats
 
 
 def profile_decode(sess, tok, steps: int) -> None:
@@ -1004,25 +1077,30 @@ def engine_requests(cfg):
             for i, n in enumerate(ENGINE_LENS)]
 
 
-def engine_run(kernels, model, label, **kw):
-    """Serve the engine trace once; every step ends synchronised, so the
-    per-step wall times add up to the run.  Returns (tokens by request,
-    launches, the engine)."""
-    import torch
+def make_engine(model, **kw):
     from repro_torch.configs import SwanConfig
     from repro_torch.runtime.serve_engine import ServeEngine
     cfg, params, projections = model
-    eng = ServeEngine(cfg, params, swan=SwanConfig(k_max=K, buffer=BUF),
-                      projections=projections, max_seq=S,
-                      n_slots=ENGINE_SLOTS, prefill_chunk=ENGINE_CHUNK,
-                      prefill_slots=ENGINE_LANES, device="cuda", **kw)
-    for r in engine_requests(cfg):
+    return ServeEngine(cfg, params, swan=SwanConfig(k_max=K, buffer=BUF),
+                       projections=projections, max_seq=S,
+                       n_slots=ENGINE_SLOTS, prefill_chunk=ENGINE_CHUNK,
+                       prefill_slots=ENGINE_LANES, device="cuda", **kw)
+
+
+def drive(kernels, eng, reqs, label):
+    """Serve ``reqs`` on ``eng`` to the end; every step ends synchronised,
+    so the per-step wall times add up to the run.  Launch counts are zeroed
+    just before and read just after.  Returns the run's tokens by request,
+    launches, dispatches (this run's), final ``cache_report()`` and times."""
+    import torch
+    for r in reqs:
         eng.submit(r)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
+    d0, n0, step0 = dict(eng.dispatches), len(eng.completions), eng.step_count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ends, kinds, peak_live = [], [], 0
@@ -1037,56 +1115,83 @@ def engine_run(kernels, model, label, **kw):
     wall = ends[-1]
     launches = {k.name: k.launches for k in kernels}
     peak_mem = torch.cuda.max_memory_allocated()
-    comps = {c.uid: c for c in eng.completions}
+    comps = {c.uid: c for c in eng.completions[n0:]}
     step_ms = [1e3 * (e - b) for b, e in zip([0.0] + ends[:-1], ends)]
     dec_only = [ms for ms, (c, d) in zip(step_ms, kinds) if d and not c]
     with_chunk = [ms for ms, (c, d) in zip(step_ms, kinds) if c]
     # decode tokens: every generated token after the first of each request
     n_dec_tok = sum(len(c.tokens) - 1 for c in comps.values())
-    ttft_steps = statistics.mean(c.first_token_step for c in comps.values())
-    ttft_ms = statistics.mean(1e3 * ends[c.first_token_step]
+    ttft_steps = statistics.mean(c.first_token_step - step0
+                                 for c in comps.values())
+    ttft_ms = statistics.mean(1e3 * ends[c.first_token_step - step0]
                               for c in comps.values())
     rep = eng.cache_report()
-    d = eng.dispatches
-    log(f"  [{label}] {eng.step_count} engine steps, dispatches {d}, "
+    d = {n: eng.dispatches[n] - d0[n] for n in d0}
+    stats = {"wall_s": wall, "tok_s": n_dec_tok / wall,
+             "chunk_ms": statistics.mean(with_chunk),
+             "decode_ms": (statistics.mean(dec_only) if dec_only
+                           else float("nan")),
+             "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
+             "steps": eng.step_count - step0, "peak_gib": peak_mem / 2**30}
+    log(f"  [{label}] {stats['steps']} engine steps, dispatches {d}, "
         f"launches {launches}")
     log(f"  [{label}] wall {wall:.2f} s; {sum(len(c.tokens) for c in comps.values())} "
-        f"tokens; decode {n_dec_tok / wall:.1f} tok/s over the run; steps "
-        f"with a chunk dispatch {statistics.mean(with_chunk):.1f} ms mean "
-        f"({len(with_chunk)}), decode-only steps "
-        f"{statistics.mean(dec_only) if dec_only else float('nan'):.1f} ms "
+        f"tokens; decode {stats['tok_s']:.1f} tok/s over the run; steps "
+        f"with a chunk dispatch {stats['chunk_ms']:.1f} ms mean "
+        f"({len(with_chunk)}), decode-only steps {stats['decode_ms']:.1f} ms "
         f"mean ({len(dec_only)}); mean time to first token {ttft_steps:.1f} "
         f"steps, {ttft_ms:.0f} ms")
     log(f"  [{label}] cache_report: reserved {rep['reserved_bytes']} B, live "
         f"{rep['live_bytes']} B at the end (peak live {peak_live} B), "
         f"page table shipped {rep.get('page_table_shipped_bytes', 0)} B; "
         f"device memory peak {peak_mem / 2**30:.2f} GiB")
-    n_l = cfg.n_layers
-    dec, chunk = ("swan_decode", "swan_chunk_stats") if label == "slab" else \
+    check(len(comps) == len(reqs)
+          and all(len(comps[r.uid].tokens) == r.max_new_tokens
+                  for r in reqs), f"[{label}] not every request completed")
+    check(all(0 <= t < eng.cfg.vocab_size for c in comps.values()
+              for t in c.tokens), f"[{label}] token ids out of range")
+    return {"tokens": {u: c.tokens for u, c in comps.items()},
+            "launches": launches, "dispatches": d, "report": rep,
+            "stats": stats}
+
+
+def check_launches(run, layout, n_layers, label):
+    """Each layout's kernels launched n_layers times per dispatch, the other
+    layout's never."""
+    launches, d = run["launches"], run["dispatches"]
+    dec, chunk = ("swan_decode", "swan_chunk_stats") if layout == "slab" else \
         ("swan_decode_paged", "swan_chunk_stats_paged")
-    check(launches[dec] == n_l * d["decode"] and launches[chunk] == n_l * d["chunk"]
+    check(launches[dec] == n_layers * d["decode"]
+          and launches[chunk] == n_layers * d["chunk"]
           and d["decode"] > 0 and d["chunk"] > 0,
-          f"[{label}] launches {launches} != {n_l} x dispatches {d}")
+          f"[{label}] launches {launches} != {n_layers} x dispatches {d}")
     others = set(launches) - {dec, chunk}
     check(all(launches[o] == 0 for o in others),
           f"[{label}] another layout's kernel ran: {launches}")
-    check(len(comps) == len(ENGINE_LENS)
-          and all(len(c.tokens) == ENGINE_NEW for c in comps.values()),
-          f"[{label}] not every request completed")
-    check(all(0 <= t < cfg.vocab_size for c in comps.values() for t in c.tokens),
-          f"[{label}] token ids out of range")
-    return {u: c.tokens for u, c in comps.items()}, launches, eng
+
+
+def engine_run(kernels, model, label, **kw):
+    """The trace on a fresh EAGER engine (the baseline of the graphs
+    phase)."""
+    eng = make_engine(model, graphs=False, **kw)
+    cfg = model[0]
+    run = drive(kernels, eng, engine_requests(cfg), label)
+    check_launches(run, label, cfg.n_layers, label)
+    return run, eng
 
 
 def engine_phase(kernels, model):
+    """The eager engine on the slab and the paged pool.  Returns the launch
+    counts by path and the two runs (the graphs phase's baseline)."""
     import torch
-    slab_tokens, slab_launches, slab = engine_run(kernels, model, "slab")
+    slab_run, slab = engine_run(kernels, model, "slab")
     slab_reserved = slab.cache_report()["reserved_bytes"]
     del slab
     gc.collect()
     torch.cuda.empty_cache()
-    paged_tokens, paged_launches, paged = engine_run(kernels, model, "paged",
-                                                     paged=True, page_size=PS)
+    paged_run, paged = engine_run(kernels, model, "paged", paged=True,
+                                  page_size=PS)
+    slab_tokens, paged_tokens = slab_run["tokens"], paged_run["tokens"]
     same = [u for u in slab_tokens if slab_tokens[u] == paged_tokens[u]]
     log(f"  paged tokens == slab tokens for {len(same)} of {len(slab_tokens)} "
         f"requests; req0: {paged_tokens['req0'][:12]} ...")
@@ -1100,13 +1205,8 @@ def engine_phase(kernels, model):
 
     # trace 4 engine steps with chunks in flight (a fresh slab engine, two
     # steps in: the 2048-token prompt takes 8 chunks)
-    from repro_torch.configs import SwanConfig
-    from repro_torch.runtime.serve_engine import ServeEngine
-    cfg, params, projections = model
-    eng = ServeEngine(cfg, params, swan=SwanConfig(k_max=K, buffer=BUF),
-                      projections=projections, max_seq=S,
-                      n_slots=ENGINE_SLOTS, prefill_chunk=ENGINE_CHUNK,
-                      prefill_slots=ENGINE_LANES, device="cuda")
+    cfg = model[0]
+    eng = make_engine(model, graphs=False)
     for r in engine_requests(cfg):
         eng.submit(r)
     for _ in range(2):
@@ -1119,11 +1219,343 @@ def engine_phase(kernels, model):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return {"engine_slab": slab_launches, "engine_paged": paged_launches}
+    return ({"engine_slab": slab_run["launches"],
+             "engine_paged": paged_run["launches"]},
+            {"slab": slab_run, "paged": paged_run})
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the chunked prefill at full retention against the dense prefill
+# phase 7: CUDA graphs — the lockstep session and the engine, graphed
+# ---------------------------------------------------------------------------
+
+WARM_PROMPT = 2048              # warmup(max_prompt_len=...) of the engines
+GRAPH_SPEEDUP = 0.6             # graphed lockstep ms/step <= this x eager
+
+
+def mixed_requests(cfg, seed=7):
+    """The engine trace's prompt lengths shuffled, with random k, token
+    budgets and temperatures (every third request samples)."""
+    import numpy as np
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_engine import Request
+    rng = np.random.RandomState(seed)
+    lens = rng.permutation(ENGINE_LENS)
+    return [Request(uid=f"mix{i}",
+                    tokens=make_batch(cfg, 1, int(n), seed=200 + i,
+                                      device="cpu")["tokens"][0].tolist(),
+                    max_new_tokens=int(rng.randint(ENGINE_NEW // 4,
+                                                   ENGINE_NEW + 1)),
+                    k=int(rng.choice(ENGINE_K)),
+                    temperature=0.8 if i % 3 == 2 else 0.0, seed=i)
+            for i, n in enumerate(lens)]
+
+
+SWAN_EXECUTIONS = {"decode": ("swan_decode_kernel",),
+                   "decode_merge": ("swan_decode_merge_kernel",),
+                   "chunk": ("swan_chunk_mma_kernel", "swan_chunk_f32_kernel")}
+
+
+def lost_records(replays):
+    """The records a profile lost, by a second witness: a graph launches
+    all of its kernels or none, so a replay that shows fewer device
+    records than another replay of the same graph in the window lost
+    them.  Returns ({kind: SWAN executions lost}, n replays compared)."""
+    full, lost, n = {}, Counter(), 0
+    for key, rec in replays:
+        if sum(rec.values()) > sum(full.get(key, Counter()).values()):
+            full[key] = rec
+    for key, rec in replays:
+        if sum(1 for k, _ in replays if k == key) < 2:
+            continue
+        n += 1
+        gone = full[key] - rec
+        for kind, names in SWAN_EXECUTIONS.items():
+            lost[kind] += sum(c for name, c in gone.items()
+                              if any(x in name for x in names))
+    return dict(lost), n
+
+
+def check_executions(label, window, attempts=3):
+    """The profiler's device executions of the decode kernel (B1 or B2:
+    split and merge kernels) and the chunk kernel (B3 or B4) must equal
+    those expected in a traced window of graphed steps.  A window that
+    counts fewer is held against the per-replay witness
+    (``lost_records``) and printed; up to ``attempts`` windows are traced,
+    none may count more than expected, and one must count exactly (a
+    tolerance for lost profiler records: one archive run on an H100
+    counted one B1 split and merge pair short in one window while the
+    launch tally and the tokens were right).  ``window()`` runs one traced
+    window and returns (``trace_steps``' stats, {"decode": n, "chunk": n})."""
+    for i in range(attempts):
+        prof, want = window()
+        k = prof["kernels"]
+        got = {kind: sum(k[n] for n in names)
+               for kind, names in SWAN_EXECUTIONS.items()}
+        want = {"decode": want["decode"], "decode_merge": want["decode"],
+                "chunk": want.get("chunk", 0)}
+        check(all(got[n] <= want[n] for n in want),
+              f"[{label}] the profiler saw {got} executions, more than the "
+              f"expected {want}")
+        if got == want:
+            log(f"  [{label}] window {i + 1}: the profiler saw the expected "
+                f"{want} executions")
+            return
+        short = {n: want[n] - got[n] for n in want if got[n] != want[n]}
+        if prof["replays"] is None:
+            verdict = "no per-replay witness"
+        else:
+            lost, n = lost_records(prof["replays"])
+            explained = all(lost.get(n_, 0) == c for n_, c in short.items())
+            verdict = (f"{n} replays of graphs replayed more than once "
+                       f"compared: their siblings show {lost} SWAN records "
+                       f"lost, which "
+                       f"{'accounts' if explained else 'does not account'} "
+                       "for the shortfall")
+        log(f"  [{label}] window {i + 1}: the profiler saw {got} executions, "
+            f"expected {want}, short {short}; witness: {verdict}; tracing "
+            "another window")
+    check(False, f"[{label}] no traced window saw the expected executions")
+
+
+def lockstep_graphs(kernels, model):
+    """The lockstep session eager and graphed in one call: the first
+    prefill and decode logits, the generated tokens, decode ms/step; a
+    profile of graphed decode steps.  Each session generates once before
+    the timed run, so the timed graphed run only replays."""
+    import torch
+    from repro_torch.configs import SwanConfig
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    cfg, params, projections = model
+    swan = SwanConfig(k_max=K, buffer=BUF, mode="topk")
+    prompt = make_batch(cfg, B, PROMPT, seed=11, device="cuda")
+    res = {}
+    for mode in ("eager", "graphed"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sess = ServeSession(cfg, params, swan=swan, projections=projections,
+                            max_seq=S, batch=B, graphs=mode == "graphed",
+                            device="cuda")
+        l0 = sess.prefill(prompt)
+        l1 = sess.decode(torch.argmax(l0.float(), dim=-1))
+        first = (l0.float(), l1.float())
+        sess.generate(prompt, 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = sess.generate(prompt, NEW_TOKENS)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k.name: k.launches for k in kernels}
+        steps = NEW_TOKENS - 1
+        res[mode] = {"first": first, "out": out, "launches": launches,
+                     "prefill_ms": prefill_ms,
+                     "decode_ms": (gen_ms - prefill_ms) / steps,
+                     "tok_s": B * NEW_TOKENS / (gen_ms / 1e3),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"  [lockstep {mode}] prefill {B}x{PROMPT} {prefill_ms:.1f} ms; "
+            f"generate {B}x{NEW_TOKENS} {gen_ms:.1f} ms -> decode "
+            f"{res[mode]['decode_ms']:.2f} ms/step, {res[mode]['tok_s']:.1f} "
+            f"tok/s (prefill included); device memory peak "
+            f"{res[mode]['peak_gib']:.2f} GiB; launches {launches}")
+        check(launches["swan_decode"] == cfg.n_layers * steps,
+              f"[lockstep {mode}] swan_decode launched "
+              f"{launches['swan_decode']} times, expected {cfg.n_layers} x "
+              f"{steps}")
+        if mode == "graphed":
+            g = sess._graphs
+            log(f"  [lockstep graphed] graphs {dict(g.captures)}, replays "
+                f"{dict(g.replays)}, capture {g.capture_s:.2f} s")
+            state = {"tok": out[:, -1]}
+
+            def step():
+                state["tok"] = torch.argmax(sess.decode(state["tok"]).float(),
+                                            dim=-1)
+            def window():
+                prof = trace_steps(step, 4, "graphed decode steps",
+                                   graphs=sess._graphs)
+                return prof, {"decode": cfg.n_layers * 4}
+            check_executions("lockstep graphed", window)
+        del sess
+    e, g = res["eager"], res["graphed"]
+    for what, a, b in (("prefill", e["first"][0], g["first"][0]),
+                       ("first decode", e["first"][1], g["first"][1])):
+        diff = (a - b).abs().max().item()
+        scale = max(1.0, a.abs().max().item())
+        log(f"  [lockstep] {what} logits graphed vs eager: max|diff| {diff} "
+            f"({'bit for bit' if diff == 0 else f'tol {5e-2 * scale:.4f}'})")
+        check(diff <= 5e-2 * scale, f"graphed {what} logits differ from eager")
+    same = bool(torch.equal(e["out"], g["out"]))
+    log(f"  [lockstep] graphed tokens == eager tokens: {same}; decode "
+        f"{g['decode_ms']:.2f} vs {e['decode_ms']:.2f} ms/step "
+        f"({g['decode_ms'] / e['decode_ms']:.3f} x)")
+    check(same, "graphed lockstep tokens differ from eager")
+    check(g["decode_ms"] <= GRAPH_SPEEDUP * e["decode_ms"],
+          f"graphed lockstep {g['decode_ms']:.2f} ms/step is not under "
+          f"{GRAPH_SPEEDUP} x eager {e['decode_ms']:.2f}")
+    return g["launches"]
+
+
+def engine_graphs(kernels, model, eager):
+    """The engine graphed, slab then paged: warmup(max_prompt_len=2048)
+    captures the whole family (census >= expected in every bucket); the
+    trace gives the eager runs' tokens, dispatches and cache_report, with
+    32 launches per dispatch counted through the replays (the paged
+    engine with async_fetch); then the slab engine serves a mixed trace
+    that captures nothing new; and on each layout a profile of graphed
+    engine steps counts B1 and B3 (slab) or B2 and B4 (paged)
+    executions."""
+    import torch
+    cfg = model[0]
+    counts = {}
+    for layout, kw in (("slab", {}), ("paged", dict(paged=True,
+                                                    page_size=PS))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        eng = make_engine(model, graphs=True, **kw)
+        mem_state = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.warmup(max_prompt_len=WARM_PROMPT)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        census, expected = rep["census"], rep["expected"]
+        g = eng._graphs
+        log(f"  [{layout} graphed] warmup(max_prompt_len={WARM_PROMPT}): "
+            f"{warm_s:.1f} s, {rep['captures']} graphs captured "
+            f"({g.capture_s:.1f} s capturing), census {census}; expected "
+            f"{expected}; graph memory "
+            f"{(torch.cuda.memory_allocated() - mem_state) / 2**30:.3f} GiB "
+            f"(the state {(mem_state - mem0) / 2**30:.2f} GiB), device "
+            f"memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        bad = [b for b in ("decode", "prefill", "insert", "insert_paged")
+               if census[b] < expected[b]]
+        bad += [f"chunk[{b}]" for b, n in expected["chunk"].items()
+                if census["chunk"].get(b, 0) < n]
+        check(not bad, f"[{layout} graphed] census below expected in {bad}")
+        lazy0 = sum(g.lazy_captures.values())
+        # the paged engine fetches its tokens asynchronously
+        eng.async_fetch = layout == "paged"
+        label = f"{layout} graphed" + (" async_fetch" if eng.async_fetch
+                                       else "")
+        run = drive(kernels, eng, engine_requests(cfg), label)
+        base = eager[layout]
+        check_launches(run, layout, cfg.n_layers, label)
+        check(run["tokens"] == base["tokens"],
+              f"[{label}] tokens differ from the eager engine's")
+        check(run["dispatches"] == base["dispatches"],
+              f"[{label}] dispatches {run['dispatches']} != eager "
+              f"{base['dispatches']}")
+        check(run["report"] == base["report"],
+              f"[{label}] cache_report differs from the eager engine's")
+        e, r = base["stats"], run["stats"]
+        log(f"  [{label}] vs eager: wall {r['wall_s']:.2f} vs "
+            f"{e['wall_s']:.2f} s; decode-only steps {r['decode_ms']:.1f} "
+            f"vs {e['decode_ms']:.1f} ms; chunk steps {r['chunk_ms']:.1f} "
+            f"vs {e['chunk_ms']:.1f} ms; mean TTFT {r['ttft_ms']:.0f} vs "
+            f"{e['ttft_ms']:.0f} ms; {r['tok_s']:.1f} vs {e['tok_s']:.1f} "
+            f"decode tok/s; device memory peak {r['peak_gib']:.2f} vs "
+            f"{e['peak_gib']:.2f} GiB; tokens, dispatches and "
+            "cache_report equal")
+        counts[f"graphs_engine_{layout}"] = run["launches"]
+        if layout == "slab":
+            census0 = eng.executable_census()
+            drive(kernels, eng, mixed_requests(cfg), "slab graphed mixed")
+            check(eng.executable_census() == census0,
+                  "[slab graphed mixed] the census changed")
+
+        def window():
+            eng.run()
+            for r in engine_requests(cfg):
+                eng.submit(r)
+            for _ in range(2):
+                eng.step()
+            n0 = dict(eng.dispatches)
+            prof = trace_steps(eng.step, 4, f"{label} engine steps",
+                               graphs=g)
+            dc = eng.dispatches["chunk"] - n0["chunk"]
+            dd = eng.dispatches["decode"] - n0["decode"]
+            log(f"  traced {label} steps' dispatches: chunk {dc}, decode "
+                f"{dd}; the eager engine's traced steps: see [engine]")
+            check(dc > 0 and dd > 0, f"[{label}] the traced steps "
+                  "dispatched no chunk or no decode")
+            return prof, {"decode": cfg.n_layers * dd,
+                          "chunk": cfg.n_layers * dc}
+        check_executions(label, window)
+        eng.run()
+        check(sum(g.lazy_captures.values()) == lazy0,
+              f"[{layout} graphed] captured {dict(g.lazy_captures)} graphs "
+              "mid-serve after warmup")
+        del eng, g
+    monolithic_graphs(kernels, model)
+    return counts
+
+
+MONO_LENS = (100, 300, 640)     # pads 128, 512, 1024
+
+
+def monolithic_graphs(kernels, model):
+    """Monolithic admission (no chunking), graphed without a warmup: each
+    prompt bucket's prefill and insert graphs are captured at first use,
+    mid-serve, and the tokens, dispatches and cache report equal an eager
+    engine's, slab and paged.  (The warm run of a capture launches the
+    kernels for real, so launches are not compared here.)"""
+    import torch
+    from repro_torch.configs import SwanConfig
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_engine import Request, ServeEngine
+    cfg, params, projections = model
+
+    def requests():
+        return [Request(uid=f"mono{i}",
+                        tokens=make_batch(cfg, 1, n, seed=300 + i,
+                                          device="cpu")["tokens"][0].tolist(),
+                        max_new_tokens=8, k=ENGINE_K[i % len(ENGINE_K)])
+                for i, n in enumerate(MONO_LENS)]
+    for layout, kw in (("slab", {}), ("paged", dict(paged=True,
+                                                    page_size=PS))):
+        out = {}
+        for graphs in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = ServeEngine(cfg, params, swan=SwanConfig(k_max=K, buffer=BUF),
+                              projections=projections, max_seq=S,
+                              n_slots=ENGINE_SLOTS, graphs=graphs,
+                              device="cuda", **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comps = eng.run(requests())
+            torch.cuda.synchronize()
+            out[graphs] = ({c.uid: c.tokens for c in comps},
+                           dict(eng.dispatches), eng.cache_report(),
+                           time.perf_counter() - t0)
+            if graphs:
+                census = eng.executable_census()
+                lazy = dict(eng._graphs.lazy_captures)
+            del eng
+        ins = "insert_paged" if layout == "paged" else "insert"
+        log(f"  [{layout} monolithic] eager {out[False][3]:.2f} s, graphed "
+            f"{out[True][3]:.2f} s (captures at first use included); "
+            f"dispatches {out[True][1]}; graphs captured mid-serve {lazy}")
+        check(out[True][:3] == out[False][:3],
+              f"[{layout} monolithic] graphed tokens, dispatches or "
+              "cache_report differ from eager")
+        check(census["prefill"] == census[ins] == len(MONO_LENS)
+              and lazy.get("prefill") == len(MONO_LENS),
+              f"[{layout} monolithic] census {census}, lazy captures {lazy}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the chunked prefill at full retention against the dense prefill
 # ---------------------------------------------------------------------------
 
 def small_model():
@@ -1202,8 +1634,9 @@ def exact_phase(kernels):
 
     cfg, _, params, proj, absorbed, full = small_model()
     s_swan = ServeSession(cfg, absorbed, swan=full, projections=proj,
-                          max_seq=1024, batch=B, device="cuda")
-    s_dense = ServeSession(cfg, params, max_seq=1024, batch=B, device="cuda")
+                          max_seq=1024, batch=B, graphs=False, device="cuda")
+    s_dense = ServeSession(cfg, params, max_seq=1024, batch=B, graphs=False,
+                           device="cuda")
     prompt = make_batch(cfg, B, 512, seed=5, device="cuda")
     ld, ls = s_dense.prefill(prompt), s_swan.prefill(prompt)
     kern = {k.name: k for k in kernels}["swan_decode"]
@@ -1336,7 +1769,8 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
     "swan_prune": ("src/repro_torch/kernels/swan_prune/csrc/swan_prune.cu",
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
-PHASES = ("kernels", "bench", "serve", "exact", "engine", "chunk_exact")
+PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs",
+          "chunk_exact")
 
 
 def main(argv=None) -> int:
@@ -1405,7 +1839,8 @@ def main(argv=None) -> int:
         log("[bench] repro_torch.benchmarks.bench_kernels at full llama3-8b "
             "width (bf16)")
         record("bench", bench_phase(KERNELS))
-    model = full_model() if {"serve", "engine"} & set(phases) else None
+    model = (full_model() if {"serve", "engine", "graphs"} & set(phases)
+             else None)
     if "serve" in phases:
         log("[serve] llama3-8b, SWAN k=64 b=128, lockstep ServeSession")
         record("serve", serve_phase(KERNELS, model))
@@ -1413,10 +1848,18 @@ def main(argv=None) -> int:
         log("[exact] 4 layers at full width, SWAN k=d_head vs dense cache")
         worst = exact_phase(KERNELS)
         log(f"  worst relative logit error {worst:.4f}")
-    if "engine" in phases:
+    if {"engine", "graphs"} & set(phases):
         log("[engine] llama3-8b, ServeEngine (4 slots, chunk 256 x 2 lanes), "
-            "slab then paged")
-        for path, counts in engine_phase(KERNELS, model).items():
+            "slab then paged, eager")
+        counts_by_path, eager_runs = engine_phase(KERNELS, model)
+        for path, counts in counts_by_path.items():
+            record(path, counts)
+    if "graphs" in phases:
+        log("[graphs] llama3-8b: the lockstep session eager and graphed")
+        record("graphs_lockstep", lockstep_graphs(KERNELS, model))
+        log(f"[graphs] ServeEngine graphed, slab then paged, after "
+            f"warmup(max_prompt_len={WARM_PROMPT})")
+        for path, counts in engine_graphs(KERNELS, model, eager_runs).items():
             record(path, counts)
     del model
     gc.collect()

@@ -21,9 +21,8 @@ tensors IN PLACE (functions ending in ``_``); they also return the cache.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from repro_torch.core.winnow import winnow_vector
@@ -204,10 +203,11 @@ def swan_cache_insert_prefill_(cache: Params, swan, k_hat: torch.Tensor,
 
     Tokens [0, S-b) are winnowed into the sparse cache; the last min(S, b)
     tokens land dense in the ring at their natural slots (t % b).
-    ``true_len`` (python int) supports prompt-length bucketing: S is the
-    padded length and only [0, true_len) are real, so the ring holds
-    [true_len - b, true_len); overshoot rows past true_len - b stay in the
-    invalid region (>= sp_len) until decode evictions rewrite them."""
+    ``true_len`` (an int or a 0-d device tensor) supports prompt-length
+    bucketing: S is the padded length and only [0, true_len) are real, so
+    the ring holds [true_len - b, true_len); overshoot rows past
+    true_len - b stay in the invalid region (>= sp_len) until decode
+    evictions rewrite them."""
     S = k_hat.shape[1]
     b = swan.buffer
     n_sp = max(S - b, 0) if b else S
@@ -226,7 +226,9 @@ def swan_cache_insert_prefill_(cache: Params, swan, k_hat: torch.Tensor,
         tail = torch.arange(n_sp, S, device=k_hat.device)
         src, ring_pos = tail, tail
     else:
-        tail = int(true_len) - b + torch.arange(b, device=k_hat.device)
+        ar = torch.arange(b, device=k_hat.device)
+        tail = (true_len.long() - b + ar if isinstance(true_len, torch.Tensor)
+                else ar + (int(true_len) - b))
         src = torch.clamp(tail, 0, S - 1)
         ring_pos = torch.where(tail >= 0, tail, torch.full_like(tail, -1))
     slots = torch.remainder(tail, b)     # b consecutive ints: all residues
@@ -290,39 +292,76 @@ def chunk_evict_winnow(cache: Params, swan, k_hat: torch.Tensor,
     return dest, packed_k, packed_v, ring
 
 
-def host_ints(x) -> np.ndarray:
-    """Per-lane schedule operands (slots, starts, lengths) as host int64
-    [P]; a tensor is copied back to the host."""
-    if isinstance(x, torch.Tensor):
-        x = x.cpu()
-    return np.asarray(x, dtype=np.int64).reshape(-1)
+class LaneWrites(NamedTuple):
+    """A plan of P per-lane writes into batch lanes (``lane_writes``),
+    computed once per dispatch and applied to every leaf of every layer
+    (``apply_lane_writes_``)."""
+    src: torch.Tensor               # [P] the lane whose values each carries
+    keep: torch.Tensor              # [P] or [P, S]: the write lands
+    lane: torch.Tensor              # [P] or [P, S]: target batch lane
+    rows: Optional[torch.Tensor]    # [P, S] target rows, or None
 
 
-def kept_lane_rows(lane, start, S: int, n: int, rows: int, device):
-    """The (lane, row) writes of per-lane chunks that land: lane ``p``
-    writes rows [start_p, start_p + S) of batch lane ``lane_p``; dead lanes
-    (``lane >= n``) and rows past ``rows`` are dropped.  Selected on the
-    host, so no two kept writes collide.  Returns index tensors (lane,
-    row, chunk lane p, chunk position) on ``device``."""
-    lane, start = host_ints(lane), host_ints(start)
-    r = start[:, None] + np.arange(S)[None]                  # [P, S]
-    pi, si = np.nonzero((lane[:, None] < n) & (r < rows))
-    return tuple(torch.as_tensor(x, device=device)
-                 for x in (lane[pi], r[pi, si], pi, si))
+def lane_writes(lane, n: int, start=None, S: int = 0, R: int = 0,
+                device=None) -> LaneWrites:
+    """How P per-lane writes into batch lanes ``lane [P]`` (``lane >= n`` is
+    a dead lane) land at a shape fixed by P (and S) alone, with no two
+    writes colliding on different values.  A live lane carries its own
+    writes; a dead lane repeats the first live lane's (lane 0's when none
+    is live), so duplicate targets always carry identical values.  With
+    ``start``, lane p writes rows [start_p, start_p + S) of a lane of R
+    rows; a row past R is dropped by rewriting its own content at row
+    ``r - R``, below the lane's kept rows (S <= R)."""
+    lane = torch.as_tensor(lane, device=device).long()
+    P, dev = lane.shape[0], lane.device
+    live = lane < n
+    first = torch.argmax(live.int())            # 0 when no lane is live
+    src = torch.where(live, torch.arange(P, device=dev), first)
+    live, tgt = live[src], torch.clamp(lane[src], max=n - 1)
+    if start is None:
+        return LaneWrites(src, live, tgt, None)
+    if S > R:
+        raise ValueError(f"{S} rows per lane exceed the {R} rows of a lane")
+    start = torch.as_tensor(start, device=dev).long().expand(P)
+    rows = start[src][:, None] + torch.arange(S, device=dev)[None]  # [P, S]
+    return LaneWrites(src, live[:, None] & (rows < R),
+                      tgt[:, None].expand(P, S), torch.remainder(rows, R))
 
 
-def write_sparse_rows_(side: Params, packed: Params, lane, dest) -> Params:
+def apply_lane_writes_(dst: torch.Tensor, new: torch.Tensor,
+                       plan: LaneWrites) -> None:
+    """Apply ``plan`` in place as one masked read-modify-write: ``new [P,
+    ...]`` into ``dst [n, ...]`` (lane writes) or ``new [P, S, X, ...]``
+    into rows of ``dst [n, X, R, ...]`` (row writes)."""
+    d = _bits(dst)
+    idx = (plan.lane,) if plan.rows is None else (plan.lane, slice(None),
+                                                  plan.rows)
+    cur = d[idx]
+    keep = plan.keep.reshape(*plan.keep.shape,
+                             *([1] * (cur.ndim - plan.keep.ndim)))
+    d[idx] = torch.where(keep, _bits(new[plan.src].to(dst.dtype)), cur)
+
+
+def write_lanes_(dst: torch.Tensor, new: torch.Tensor, lane) -> None:
+    """``dst[lane_p] = new[p]`` for the live lanes of ``lane [P]`` (dead
+    lanes, ``lane >= dst.shape[0]``, write nothing), in place."""
+    apply_lane_writes_(dst, new, lane_writes(lane, dst.shape[0],
+                                             device=dst.device))
+
+
+def write_sparse_rows_(side: Params, packed: Params, lane=None, dest=None,
+                       plan: Optional[LaneWrites] = None) -> Params:
     """Commit packed chunk vectors [P, Kv, S, ...] at rows [dest_p, dest_p +
-    S) of batch lanes ``lane [P]``, in place (the slab commit of the
-    batched chunked prefill); dead lanes and rows past the slab are
-    dropped (``kept_lane_rows``)."""
-    li, ri, pi, si = kept_lane_rows(lane, dest, packed["vals"].shape[2],
-                                    side["vals"].shape[0],
-                                    side["vals"].shape[2], side["vals"].device)
+    S) of batch lanes ``lane [P]`` (or by a row ``plan``), in place (the
+    slab commit of the batched chunked prefill); dead lanes and rows past
+    the slab are dropped (``lane_writes``)."""
+    if plan is None:
+        plan = lane_writes(lane, side["vals"].shape[0], dest,
+                           packed["vals"].shape[2], side["vals"].shape[2],
+                           side["vals"].device)
     for name in ("vals", "idx", "scale"):
         if name in side:
-            src = packed[name].transpose(1, 2)[pi, si]       # [N, Kv, ...]
-            _bits(side[name])[li, :, ri] = _bits(src.to(side[name].dtype))
+            apply_lane_writes_(side[name], packed[name].transpose(1, 2), plan)
     return side
 
 

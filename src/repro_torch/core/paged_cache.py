@@ -32,7 +32,7 @@ import torch
 from repro_torch.core.hybrid_cache import (_bits, _val_dtype, _zeros,
                                            chunk_evict_winnow,
                                            decode_evict_winnow,
-                                           packed_vector_bytes)
+                                           packed_vector_bytes, write_lanes_)
 from repro_torch.models.common import torch_dtype
 
 Params = Dict[str, Any]
@@ -168,7 +168,7 @@ def _scatter_side_(pool_side: Params, slot_side: Params,
     """Scatter ONE slot's slab-layout sparse side [L, 1, Kv, S, ...] into
     the pool [L, n_pages, ...] at physical pages ``phys_rows [S // ps]``.
     Every logical page is written; unmapped ones land on the trash page."""
-    p = phys_rows.long()
+    p = torch.as_tensor(phys_rows, device=pool_side["vals"].device).long()
     for name in ("vals", "idx", "scale"):
         if name not in pool_side:
             continue
@@ -180,13 +180,17 @@ def _scatter_side_(pool_side: Params, slot_side: Params,
         _bits(pool_side[name])[:, p] = _bits(pages.to(pool_side[name].dtype))
 
 
-def paged_insert_prefill_(state: Params, one: Params, slot: int,
+def paged_insert_prefill_(state: Params, one: Params, slot,
                           phys_rows: torch.Tensor, page_size: int) -> Params:
     """Admit a batch=1 prefilled slab state into the paged batched state, in
-    place: ring leaves go to lane ``slot``; the sparse sides scatter
-    page-wise into the pool at the slot's physical pages."""
+    place: ring leaves go to lane ``slot`` (an int or a device tensor;
+    ``slot = n_slots`` parks the insert and the ring writes drop); the
+    sparse sides scatter page-wise into the pool at the slot's physical
+    pages (all the trash page for a parked insert)."""
     for s in ("k", "v"):
         _scatter_side_(state["pool"][s], one[s], phys_rows, page_size)
     for leaf in ("buf_k", "buf_v", "buf_pos"):
-        state[leaf][:, slot] = one[leaf][:, 0].to(state[leaf].dtype)
+        x = state[leaf]
+        write_lanes_(x.movedim(1, 0), one[leaf].movedim(1, 0),
+                     torch.as_tensor(slot, device=x.device).reshape(1))
     return state

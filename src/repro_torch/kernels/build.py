@@ -98,16 +98,27 @@ class CudaLibrary:
 class CudaKernel:
     """One kernel the port launches, in a :class:`CudaLibrary` (several
     kernels may share one library), and how many times the port launched
-    it (``launches``, bumped by the wrapper at each launch and nowhere
-    else)."""
+    it (``launches``).  The wrapper calls :meth:`count_launch` at each
+    launch and nowhere else.  A launch made while the stream is being
+    captured into a CUDA graph only records the kernel into the graph, so
+    it counts in ``captured`` instead; ``runtime.graphs`` adds a graph's
+    recorded launches to ``launches`` at each replay."""
 
     def __init__(self, name: str, library: CudaLibrary):
         self.name = name
         self.library = library
         self.launches = 0
+        self.captured = 0
 
     def lib(self) -> ctypes.CDLL:
         return self.library.lib()
+
+    def count_launch(self) -> None:
+        import torch
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[Path]:

@@ -126,7 +126,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{KERNEL.name} launch failed: "
                            + lib.flash_prefill_error_string(err).decode())
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return out
 
 

@@ -186,7 +186,7 @@ def _launch(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, sp_len,
     if err != 0:
         raise RuntimeError(f"{kernel.name} launch failed: "
                            + lib.swan_chunk_error_string(err).decode())
-    kernel.launches += 1
+    kernel.count_launch()
     return m, l, o
 
 

@@ -115,7 +115,7 @@ def _launch(x, p_rot, k_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if err != 0:
         raise RuntimeError(f"{KERNEL.name} launch failed: "
                            + lib.swan_prune_error_string(err).decode())
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return vals, idx
 
 

@@ -11,8 +11,12 @@ concurrent prefill).
         --engine --requests 8 --mixed-k --paged --prefill-chunk 256 \
         --prefill-slots 2
 
-run on the card; ``--smoke --device cpu`` runs the small configuration
-through the plain PyTorch path on the CPU.
+run on the card, where every dispatch replays a CUDA graph per shape
+bucket (``--engine --warmup`` captures the engine's whole graph family
+before the first request, and ``--async-fetch`` overlaps the decode
+token copy with the next step's scheduling); ``--smoke --device cpu``
+runs the small configuration eagerly through the plain PyTorch path on
+the CPU.
 """
 from __future__ import annotations
 
@@ -81,7 +85,23 @@ def main(argv=None):
     ap.add_argument("--admission", default="fifo", choices=["fifo", "srf"],
                     help="engine: admission policy (fifo, or "
                          "shortest-remaining-first)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="engine: capture the whole CUDA-graph family "
+                         "before the first request (runtime.warmup) — no "
+                         "capture mid-serve; prints the warmup report "
+                         "summary")
+    ap.add_argument("--max-prompt-len", type=int, default=None,
+                    help="engine: trim the warmed prefix family to prompts "
+                         "of at most this many tokens (default max-seq); "
+                         "longer prompts still serve — their buckets are "
+                         "captured at first use")
+    ap.add_argument("--async-fetch", action="store_true",
+                    help="engine: overlap host scheduling with the decode "
+                         "token copy (pinned, non-blocking, resolved at the "
+                         "next step; token-identical)")
     args = ap.parse_args(argv)
+    if (args.warmup or args.async_fetch) and not args.engine:
+        raise SystemExit("--warmup/--async-fetch require --engine")
     if args.prefill_chunk and not args.engine:
         raise SystemExit("--prefill-chunk requires --engine")
     if ((args.prefill_slots > 1 or args.prefill_budget is not None)
@@ -94,6 +114,10 @@ def main(argv=None):
         raise SystemExit("--pool-grow requires --paged")
 
     device = resolve_device(args.device)
+    graphs = device.type == "cuda"
+    if args.warmup and not graphs:
+        raise SystemExit("--warmup captures CUDA graphs: it needs a CUDA "
+                         "device")
     if device.type == "cuda":   # build before anything is timed
         t0 = time.perf_counter()
         build_all(KERNELS)
@@ -117,11 +141,12 @@ def main(argv=None):
               f"mode={swan.mode} int8={swan.quantize}")
 
     if args.engine:
-        _run_engine(cfg, params, swan, projections, args, device)
+        _run_engine(cfg, params, swan, projections, args, device, graphs)
         return
 
     sess = ServeSession(cfg, params, swan=swan, projections=projections,
-                        max_seq=args.max_seq, batch=args.batch, device=device)
+                        max_seq=args.max_seq, batch=args.batch,
+                        graphs=graphs, device=device)
     prompt = make_batch(cfg, args.batch, args.prompt_len, seed=11,
                         device=device)
     _sync(device)
@@ -133,13 +158,15 @@ def main(argv=None):
         print(f"seq {i}: {out[i].tolist()}")
     n_tok = out.numel()
     print(f"generated {n_tok} tokens in {dt:.3f}s ({n_tok / dt:.1f} tok/s, "
-          f"prefill included) on {device}")
+          f"prefill and graph captures included) on {device}, "
+          f"{'graphed' if graphs else 'eager'}")
     rep = sess.cache_report()
     extra = f" ({rep['saving']:.0%} vs dense)" if "saving" in rep else ""
     print(f"cache [{rep['mode']}]: {rep['bytes'] / 1e6:.2f} MB{extra}")
 
 
-def _run_engine(cfg, params, swan, projections, args, device) -> None:
+def _run_engine(cfg, params, swan, projections, args, device,
+                graphs: bool) -> None:
     eng = ServeEngine(cfg, params, swan=swan, projections=projections,
                       max_seq=args.max_seq, n_slots=args.batch,
                       paged=args.paged, page_size=args.page_size,
@@ -147,7 +174,13 @@ def _run_engine(cfg, params, swan, projections, args, device) -> None:
                       prefill_slots=args.prefill_slots,
                       prefill_budget=args.prefill_budget,
                       pool_grow=args.pool_grow, admission=args.admission,
+                      graphs=graphs, async_fetch=args.async_fetch,
                       device=device)
+    if args.warmup:
+        rep = eng.warmup(max_prompt_len=args.max_prompt_len)
+        print(f"warmup: {rep['census']['total']} graphs, {rep['captures']} "
+              f"captures in {rep['warmup_ms']:.0f} ms "
+              f"({ {k: v['captures'] for k, v in rep['by_kind'].items()} })")
     n_req = args.requests or args.batch * 2
     k_cycle = ([None] if (swan is None or not args.mixed_k)
                else [swan.k_max, max(swan.k_max // 2, 1),
@@ -173,7 +206,11 @@ def _run_engine(cfg, params, swan, projections, args, device) -> None:
     extra = f" ({rep['saving']:.0%} vs dense)" if "saving" in rep else ""
     print(f"engine: {len(comps)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s, {eng.step_count} steps, dispatches "
-          f"{eng.dispatches}) on {device}")
+          f"{eng.dispatches}) on {device}, "
+          f"{'graphed' if graphs else 'eager'}")
+    if graphs:
+        print(f"graphs: {eng.executable_census()['total']} held, "
+              f"{sum(eng._graphs.lazy_captures.values())} captured mid-serve")
     print(f"cache [{rep['mode']}]: {rep['bytes'] / 1e6:.2f} MB{extra}")
     if args.paged:
         print(f"paged: reserved {rep['reserved_bytes'] / 1e6:.2f} MB over "

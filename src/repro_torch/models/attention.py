@@ -15,7 +15,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.core.hybrid_cache import kept_lane_rows
+from repro_torch.core.hybrid_cache import LaneWrites, apply_lane_writes_
 from repro_torch.models.common import apply_rope, torch_dtype
 
 Params = Dict[str, Any]
@@ -55,8 +55,10 @@ def _expand_kv(k: torch.Tensor, group: int) -> torch.Tensor:
 def _query_positions(Sq: int, q_offset, device) -> torch.Tensor:
     """Absolute query positions [B|1, Sq]: ``q_offset`` is a scalar or
     per-sequence [B] (each lane's chunk resumes at its own position)."""
-    off = torch.as_tensor(q_offset, device=device).reshape(-1, 1)
-    return torch.arange(Sq, device=device)[None] + off
+    ar = torch.arange(Sq, device=device)[None]
+    if isinstance(q_offset, torch.Tensor):
+        return ar + q_offset.to(device).reshape(-1, 1)
+    return ar + int(q_offset)       # an int never becomes a device tensor
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,16 +150,12 @@ def dense_cache_insert_(cache: Params, k: torch.Tensor, v: torch.Tensor,
 
 
 def dense_cache_insert_rows_(cache: Params, k: torch.Tensor,
-                             v: torch.Tensor, lane, start) -> Params:
-    """Insert chunk K/V [P, S, Kv, dh] at rows [start_p, start_p + S) of
-    batch lanes ``lane [P]``, in place (the batched chunked-prefill
-    insert); dead lanes and rows past max_seq are dropped
-    (``kept_lane_rows``)."""
-    li, ri, pi, si = kept_lane_rows(lane, start, k.shape[1],
-                                    cache["k"].shape[0], cache["k"].shape[2],
-                                    cache["k"].device)
-    for name, new in (("k", k), ("v", v)):
-        cache[name][li, :, ri] = new[pi, si].to(cache[name].dtype)
+                             v: torch.Tensor, plan: LaneWrites) -> Params:
+    """Insert chunk K/V [P, S, Kv, dh] by the dispatch's row ``plan``
+    (``hybrid_cache.lane_writes``: dead lanes and rows past max_seq are
+    dropped), in place (the batched chunked-prefill insert)."""
+    apply_lane_writes_(cache["k"], k, plan)
+    apply_lane_writes_(cache["v"], v, plan)
     return cache
 
 

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core import absorb as absorb_mod
@@ -265,15 +264,18 @@ def lm_prefill(p: Params, cfg, tokens: torch.Tensor, caches: Params,
     """Process the prompt [B, S], filling ``caches`` in place.  Returns
     (last-token logits [B, 1, V], caches).
 
-    ``k_active`` (python int) caps the SWAN retention of the whole prompt
-    (per-request k).  ``true_len`` (python int) is the real prompt length
-    when ``tokens`` is padded to a bucket: the logits are taken at
-    true_len - 1 and the ring is anchored there."""
+    ``k_active`` (an int, or a 0-d device tensor) caps the SWAN retention
+    of the whole prompt (per-request k).  ``true_len`` (an int, or a 0-d
+    device tensor) is the real prompt length when ``tokens`` is padded to
+    a bucket: the logits are taken at true_len - 1 (a device gather) and
+    the ring is anchored there."""
     x, positions = _embed(p, cfg, tokens)
     use_swan = swan is not None and swan.enabled
     k_layers = _k_per_layer(cfg, swan, projections) if use_swan else None
     if use_swan and k_active is not None:
-        k_layers = [min(k, int(k_active)) for k in k_layers]
+        k_layers = [torch.clamp(k_active, max=k)
+                    if isinstance(k_active, torch.Tensor)
+                    else min(k, int(k_active)) for k in k_layers]
     for i in range(cfg.n_layers):
         lp, cache_l = layer_params(p, i), layer_cache(caches, i)
         h = apply_norm(lp["ln1"], x)
@@ -286,8 +288,13 @@ def lm_prefill(p: Params, cfg, tokens: torch.Tensor, caches: Params,
             attn.dense_cache_insert_(cache_l, k, v, 0)
             h = attn.output_proj(lp["attn"], attn.causal_attention(q, k, v))
         x = _layer_ffn(lp, cfg, x + h)
-    last = x.shape[1] if true_len is None else int(true_len)
-    return _head(p, x[:, last - 1:last]), caches
+    if true_len is None:
+        x = x[:, -1:]
+    elif isinstance(true_len, torch.Tensor):
+        x = x.index_select(1, (true_len.long() - 1).reshape(1))
+    else:
+        x = x[:, int(true_len) - 1:int(true_len)]
+    return _head(p, x), caches
 
 
 def _swan_layer_prefill_chunk(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
@@ -300,8 +307,8 @@ def _swan_layer_prefill_chunk(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
     its [winnowed sparse prefix ‖ ring ‖ chunk], commit each chunk at its
     own offset, and write the live lanes' rings back.  Dead lanes (``slot
     >= n_slots``) read a clamped lane and write nothing: slab rows and
-    rings are written for the live lanes only, paged writes of dead lanes
-    go to the trash page."""
+    rings take fixed-shape masked writes (``hc.lane_writes``), paged
+    writes of dead lanes go to the trash page."""
     Kv = cfg.n_kv_heads
     q, k, v = attn.project_qkv(lp["attn"], cfg, x, positions)
     q_hat = rotate_q(q, p_qk_l, Kv)                      # [P,S,Kv,G,dh]
@@ -325,10 +332,8 @@ def _swan_layer_prefill_chunk(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
         _, packed_k, packed_v, upd = hc.chunk_evict_winnow(
             ring, swan, k_hat, v, start, true_len, k_act=k_act)
         ring_new = {**ring, **upd}                       # upd is {} at b == 0
-        hc.write_sparse_rows_(cache_l["k"], packed_k, lanes["slot_h"],
-                              lanes["dest_h"])
-        hc.write_sparse_rows_(cache_l["v"], packed_v, lanes["slot_h"],
-                              lanes["dest_h"])
+        hc.write_sparse_rows_(cache_l["k"], packed_k, plan=lanes["rows"])
+        hc.write_sparse_rows_(cache_l["v"], packed_v, plan=lanes["rows"])
     else:                                                # paged layout
         page_rows = page_tab[lane_ix]                    # [P, Pg]
         lane = dict(ring)
@@ -347,9 +352,8 @@ def _swan_layer_prefill_chunk(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
                                        page_rows, k_act=k_act,
                                        dead=lanes["dead"])
         ring_new = {n: lane[n] for n in ("buf_k", "buf_v", "buf_pos")}
-    live, slot_live = lanes["live"], lanes["slot_live"]
     for n in ("buf_k", "buf_v", "buf_pos"):
-        cache_l[n][slot_live] = ring_new[n][live].to(cache_l[n].dtype)
+        hc.apply_lane_writes_(cache_l[n], ring_new[n], lanes["ring"])
     return attn.output_proj(lp["attn"], o)
 
 
@@ -362,8 +366,7 @@ def _dense_layer_prefill_chunk(lp: Params, cache_l: Params, cfg,
     attention of each chunk against its lane's first ``prefix_len`` rows
     (rows past a lane's chunk are masked by its causal offset)."""
     q, k, v = attn.project_qkv(lp["attn"], cfg, x, positions)
-    attn.dense_cache_insert_rows_(cache_l, k, v, lanes["slot_h"],
-                                  lanes["start_h"])
+    attn.dense_cache_insert_rows_(cache_l, k, v, lanes["rows"])
     S_max = cache_l["k"].shape[2]
     pl = S_max if prefix_len is None else min(prefix_len, S_max)
     kc = cache_l["k"][:, :, :pl][lanes["lane_ix"]].transpose(1, 2)
@@ -391,17 +394,19 @@ def lm_prefill_chunk_batched(p: Params, cfg, tokens: torch.Tensor,
 
     ``tokens [P, C]``: the chunks, one lane per in-flight prefill, padded
     to a common width.  ``slot`` / ``start`` / ``true_len`` / ``k_active``
-    are per-lane [P] host arrays (the scheduler's own numbers; a tensor is
-    copied back): each lane's slot, the position of its chunk's first
+    are per-lane [P] operands (device tensors, or host arrays that are
+    copied over): each lane's slot, the position of its chunk's first
     token, its number of real chunk tokens and its retention cap.  Lanes
     with ``slot >= n_slots`` are DEAD padding: they compute clamped
-    garbage and write nothing that a live lane can see.  With SWAN, each
-    lane sees positions [0, start) exactly as a decode step at that
-    position would (winnowed sparse prefix + dense ring), and after the
-    chunk the ring holds [start + true_len - b, start + true_len).
-    ``page_tab [n_slots, Pg]`` (a table prefix) routes the sparse reads
-    and writes through the page pool; ``prefix_len`` (python int >=
-    max(start) + C) bounds the slab/dense read.
+    garbage and write nothing that a live lane can see.  No value is read
+    back to the host and every shape follows (P, C, prefix) alone, so
+    the dispatch can be captured in a CUDA graph.  With SWAN, each lane
+    sees positions [0, start) exactly as a decode step at that position
+    would (winnowed sparse prefix + dense ring), and after the chunk the
+    ring holds [start + true_len - b, start + true_len).  ``page_tab
+    [n_slots, Pg]`` (a table prefix) routes the sparse reads and writes
+    through the page pool; ``prefix_len`` (python int >= max(start) + C)
+    bounds the slab/dense read.
 
     Returns (logits at each chunk's last real token [P, V], caches); dead
     lanes' logits are garbage the caller discards."""
@@ -412,28 +417,34 @@ def lm_prefill_chunk_batched(p: Params, cfg, tokens: torch.Tensor,
         raise ValueError("page_tab given but SWAN disabled — only the "
                          "sparse sides are paged")
     n_slots = (caches["buf_pos"] if use_swan else caches["k"]).shape[1]
-    slot_h = hc.host_ints(slot)
-    start_h = np.broadcast_to(hc.host_ints(start), (P,)).copy()
-    tlen_h = (np.full((P,), S, np.int64) if true_len is None
-              else np.broadcast_to(hc.host_ints(true_len), (P,)).copy())
-    live_h = np.nonzero(slot_h < n_slots)[0]
+
+    def lane_vec(x):
+        return torch.as_tensor(x, device=dev).long().reshape(-1).expand(P)
+
+    slot = lane_vec(slot)
+    start = lane_vec(start)
     lanes = {
-        "slot_h": slot_h, "start_h": start_h,
-        "dest_h": np.maximum(start_h - (swan.buffer if use_swan else 0), 0),
-        "lane_ix": torch.as_tensor(np.minimum(slot_h, n_slots - 1),
-                                   device=dev),
-        "start": torch.as_tensor(start_h, device=dev),
-        "true_len": torch.as_tensor(tlen_h, device=dev),
-        "dead": torch.as_tensor(slot_h >= n_slots, device=dev),
-        "live": torch.as_tensor(live_h, device=dev),
-        "slot_live": torch.as_tensor(slot_h[live_h], device=dev),
+        "slot": slot, "start": start,
+        "dest": torch.clamp(start - (swan.buffer if use_swan else 0), min=0),
+        "lane_ix": torch.clamp(slot, max=n_slots - 1),
+        "true_len": (torch.full((P,), S, dtype=torch.long, device=dev)
+                     if true_len is None else lane_vec(true_len)),
+        "dead": slot >= n_slots,
     }
+    # the fixed-shape slab/dense row commits and ring write-backs, planned
+    # once for every layer (``hc.lane_writes``)
+    if use_swan:
+        lanes["ring"] = hc.lane_writes(slot, n_slots)
+        if page_tab is None:
+            lanes["rows"] = hc.lane_writes(slot, n_slots, lanes["dest"], S,
+                                           caches["k"]["vals"].shape[3])
+    else:
+        lanes["rows"] = hc.lane_writes(slot, n_slots, start, S,
+                                       caches["k"].shape[3])
     x = p["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
     positions = lanes["start"][:, None] + torch.arange(S, device=dev)[None]
     k_layers = _k_per_layer(cfg, swan, projections) if use_swan else None
-    k_req = (None if k_active is None else
-             torch.as_tensor(np.broadcast_to(hc.host_ints(k_active),
-                                             (P,)).copy(), device=dev))
+    k_req = None if k_active is None else lane_vec(k_active)
     for i in range(cfg.n_layers):
         lp, cache_l = layer_params(p, i), layer_cache(caches, i)
         h = apply_norm(lp["ln1"], x)

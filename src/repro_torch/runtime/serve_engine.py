@@ -1,9 +1,8 @@
 """Continuous-batching serve engine: a slot scheduler over batched caches.
 
 Port of ``repro.runtime.serve_engine`` without a mesh (one shard), without
-metrics, trace or profiler hooks, and without the JIT mechanisms (warmup,
-executable census, AOT lowering, async fetch): PyTorch runs eagerly, and
-their analogue here is CUDA-graph capture, a later step.
+metrics, trace or profiler hooks, and without AOT lowering
+(``lower_decode`` / ``lower_chunk``).
 
   * a request queue (FIFO by default; ``admission="srf"`` picks the
     shortest remaining request first) feeds ``n_slots`` cache slots;
@@ -15,20 +14,39 @@ their analogue here is CUDA-graph capture, a later step.
 
 Per-request SWAN ``k`` rides along as a per-lane ``[B]`` operand, so a batch
 mixes compression levels.  Prompts are padded to power-of-two buckets with
-the true length alongside (the reference's compile-count bound; kept so the
-two engines compute the same thing).  Greedy lanes take the device argmax;
-temperature lanes sample on the host from the lane's f32 logits with a
-``torch.Generator`` seeded from (request seed, draw index) — they cannot
-reproduce the reference's ``jax.random`` draws.
+the true length alongside (the reference's compile-count bound; here the
+graph-count bound).  Greedy lanes take the device argmax computed inside
+the dispatch; temperature lanes sample on the host from the lane's f32
+logits with a ``torch.Generator`` seeded from (request seed, draw index) —
+they cannot reproduce the reference's ``jax.random`` draws.
+
+Compiled dispatch (``graphs``; ``None`` = on for a CUDA device, off on the
+CPU): each dispatch — decode, chunk, monolithic prefill and insert — is one
+CUDA graph per shape bucket (``runtime.graphs``), the port's counterpart of
+the reference's jitted executable per bucket.  Its operands are device
+tensors whose shapes follow the bucket alone (decode: the page-table
+width; chunk: lanes x chunk width x slab read prefix or page width;
+prefill and insert: the prompt pad), and nothing inside reads a value back
+to the host.  A bucket is captured at its first dispatch, or in advance by
+``warmup()`` (``runtime.warmup``: the whole family the static config
+allows, through dead-lane no-op operands); ``executable_census()`` counts
+the graphs under the reference's keys.  ``_grow_pool`` reallocates the
+pool, so it drops every graph and re-warms a warmed engine.
+``async_fetch=True`` starts the decode token copy (greedy ids, and the
+temperature lanes' logits rows) into pinned host memory at dispatch and
+resolves it at the top of the next ``step()``, stamped with the dispatch
+step: tokens, completion steps and dispatches equal the synchronous path.
 
 Paged sparse cache (``paged=True``; SWAN only): all slots share one page
 pool per layer side, addressed through the host page table
 (``runtime.page_pool``): admission maps the prompt's pages, decode grows
 the mapping as tokens land, retirement frees pages for immediate reuse, so
-cache memory follows LIVE tokens.  An over-committed pool holds admissions
-until pages free; ``pool_grow=True`` grows the device pool instead (2x
-pages, up to the full reservation).  The paged engine gives the slab
-engine's tokens: on the card its kernels equal the slab's bit for bit.
+cache memory follows LIVE tokens.  Each shipped table width has one
+static device buffer, refreshed when the host table changed.  An
+over-committed pool holds admissions until pages free; ``pool_grow=True``
+grows the device pool instead (2x pages, up to the full reservation).  The
+paged engine gives the slab engine's tokens: on the card its kernels equal
+the slab's bit for bit.
 
 Chunked prefill (``prefill_chunk=C``, a power of two): a slot moves
 queued -> PREFILLING -> DECODING -> retired; up to ``prefill_slots``
@@ -39,7 +57,8 @@ slots' lanes of the batched state.  The lane count is bucketed to a power
 of two; dead lanes park at ``slot = n_slots``.  Chunk boundaries never
 depend on the schedule, so chunked == monolithic and batched == serial,
 token for token.  Each engine step issues at most one chunk dispatch and
-one decode dispatch (``dispatches``).
+one decode dispatch (``dispatches``).  Monolithic admission prefills into
+one single-slot transient shared by every prompt bucket, then inserts it.
 
 ``cache_report()`` reports ``reserved_bytes`` (allocated now), ``live_bytes``
 (addressable by live tokens; equal to reserved on the slab) and, paged,
@@ -49,7 +68,7 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +77,7 @@ from repro_torch.core import hybrid_cache as hc
 from repro_torch.core import paged_cache as pc
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import get_model, swan_applicable
+from repro_torch.runtime.graphs import GraphSet
 from repro_torch.runtime.page_pool import PagePool, PagePoolExhausted
 from repro_torch.runtime.sampling import sample_token
 from repro_torch.runtime.serve_loop import serve_cache_report
@@ -104,6 +124,22 @@ class _Slot:
     first_token_step: int = -1
 
 
+@dataclass
+class _PendingTokens:
+    """A device-to-host token copy in flight: the greedy ids [N] and (with
+    temperature lanes) their gathered logits rows, both landing in pinned
+    host buffers, with the CUDA event that marks their arrival (None on
+    the CPU, where the copies are done at once).  ``step`` is the engine
+    step of the dispatch, ``lanes`` its slots (decode only)."""
+    greedy: torch.Tensor          # host [N] int64
+    rows: Optional[torch.Tensor]  # host [pow2(n_temp), V] or None
+    temp: List[int]               # lane ids of the temperature picks
+    picks: list                   # [(lane, Request, draw index)]
+    step: int
+    lanes: Optional[List[int]]
+    event: Any
+
+
 def _pow2(n: int) -> int:
     b = 1
     while b < n:
@@ -114,7 +150,9 @@ def _pow2(n: int) -> int:
 class ServeEngine:
     """Continuous-batching generation over a slot-based batched cache on
     ``device`` (the card unless ``device="cpu"``); ``params`` and
-    ``projections`` must live there."""
+    ``projections`` must live there.  ``graphs`` (None: on for a CUDA
+    device) dispatches through CUDA graphs; ``graphs=True`` without a
+    card raises."""
 
     def __init__(self, cfg, params, swan=None, projections=None,
                  max_seq: int = 4096, n_slots: int = 4, paged: bool = False,
@@ -123,8 +161,12 @@ class ServeEngine:
                  prefill_chunk: Optional[int] = None, prefill_slots: int = 1,
                  prefill_budget: Optional[int] = None,
                  pool_grow: bool = False, admission: str = "fifo",
+                 graphs: Optional[bool] = None, async_fetch: bool = False,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self._graphs = GraphSet(self.device) if graphs else None
         self.cfg = cfg
         self.api = get_model(cfg)
         self.swan = (swan if (swan and swan.enabled and swan_applicable(cfg))
@@ -197,9 +239,21 @@ class ServeEngine:
         self.step_count = 0
         self.completions: List[Completion] = []
         self._prefill_rr = 0            # round-robin pointer over slots
-        # device copies of page-table prefixes, keyed by width and
-        # invalidated by the pool's version counter
-        self._table_cache: Dict[int, Any] = {}
+        # one static device buffer per shipped page-table width, with the
+        # pool version it holds (graphs read the buffer in place)
+        self._tables: Dict[int, torch.Tensor] = {}
+        self._table_ver: Dict[int, int] = {}
+        # the monolithic admission's single-slot prefill state: graphed,
+        # shared by every prompt bucket (allocated at the first admission)
+        self._transient: Optional[Params] = None
+        # pinned host buffers of the token fetch, keyed (source, lanes,
+        # rows) as the reference's fetch family
+        self._fetch_bufs: Dict[Any, torch.Tensor] = {}
+        self.async_fetch = bool(async_fetch)
+        self._pending: Optional[_PendingTokens] = None
+        self._warmed = False
+        self._warm_prompt_len: Optional[int] = None
+        self.warmup_report: Optional[Dict[str, Any]] = None
         self.dispatches = {"prefill": 0, "chunk": 0, "decode": 0}
 
     # ------------------------------------------------------------------
@@ -229,9 +283,224 @@ class ServeEngine:
 
     @property
     def done(self) -> bool:
-        return not self.queue and self.n_active == 0
+        # an unresolved async token fetch still owes tokens (and maybe
+        # retirements): one more step() resolves it
+        return (not self.queue and self.n_active == 0
+                and self._pending is None)
 
-    def _sample(self, logits: torch.Tensor, req: Request, n_prev: int) -> int:
+    # ------------------------------------------------------------------
+    # Graph census and warmup
+    # ------------------------------------------------------------------
+
+    def executable_census(self) -> Dict[str, Any]:
+        """Captured graphs per dispatch family, under the reference's keys:
+        decode, monolithic prefill, the chunk family keyed by its slab read
+        prefix (``"paged"`` for the paged family), the two admission
+        inserts, and ``pool_grow`` (always empty: growth runs eagerly).
+        Requires ``graphs`` (an eager engine captures nothing)."""
+        if self._graphs is None:
+            raise RuntimeError("executable_census requires graphs=True — "
+                               "an eager engine captures no graphs")
+        g = self._graphs
+        chunk: Dict[str, int] = {}
+        for key in g.keys("chunk"):
+            bucket = "paged" if self.paged else str(key[3])
+            chunk[bucket] = chunk.get(bucket, 0) + 1
+        census: Dict[str, Any] = {
+            "decode": g.count("decode"), "prefill": g.count("prefill"),
+            "chunk": chunk, "chunk_total": sum(chunk.values()),
+            "insert": g.count("insert"),
+            "insert_paged": g.count("insert_paged"),
+            "pool_grow": {}, "pool_grow_total": 0}
+        census["total"] = (census["decode"] + census["prefill"]
+                           + census["chunk_total"] + census["insert"]
+                           + census["insert_paged"])
+        return census
+
+    @property
+    def decode_cache_size(self) -> int:
+        """Captured decode graphs; 0 for an eager engine."""
+        if self._graphs is None:
+            return 0
+        return self.executable_census()["decode"]
+
+    @property
+    def prefill_cache_size(self) -> int:
+        """Captured prefill graphs, monolithic + chunked; 0 for an eager
+        engine."""
+        if self._graphs is None:
+            return 0
+        c = self.executable_census()
+        return c["prefill"] + c["chunk_total"]
+
+    def warmup(self, max_prompt_len: Optional[int] = None) -> Dict[str, Any]:
+        """Capture the engine's whole graph family before the first request
+        (``runtime.warmup.warmup_engine``: dead-lane no-op dispatches
+        through the same callables ``step()`` uses), so that no request
+        pays a capture mid-serve.  Idempotent.  Returns the warmup report
+        (also kept on ``warmup_report``); ``max_prompt_len`` trims the slab
+        read-prefix and pad families."""
+        from repro_torch.runtime.warmup import warmup_engine
+        report = warmup_engine(self, max_prompt_len=max_prompt_len)
+        self._warmed = True
+        self._warm_prompt_len = max_prompt_len
+        self.warmup_report = report
+        return report
+
+    # ------------------------------------------------------------------
+    # Dispatches: one function per family, its operands device tensors of
+    # bucket shape; eager, or one CUDA graph per bucket
+    # ------------------------------------------------------------------
+
+    def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, non_blocking=True)
+        return torch.from_numpy(np.array(x)).to(self.device,
+                                                non_blocking=True)
+
+    def _dispatch(self, family: str, key, fn: Callable, inputs: Sequence,
+                  dead_inputs: Callable[[], Sequence]):
+        if self._graphs is None:
+            return fn(*[self._to_device(x) for x in inputs])
+        return self._graphs.run(family, key, fn, inputs, dead_inputs)
+
+    def _decode_call(self, tok, pos, k, width: Optional[int]):
+        """Decode dispatch -> (logits [n_slots, V], greedy ids [n_slots]);
+        ``width``: the shipped page-table width (paged) or None."""
+        tab = None if width is None else self._device_table(width)
+
+        def fn(tok, pos, k):
+            kw: Dict[str, Any] = {}
+            if self.swan is not None:
+                kw["k_active"] = k
+            if tab is not None:
+                kw["page_tab"] = tab
+            logits, _ = self.api.decode_step(self.params, self.cfg, tok, pos,
+                                             self.state, self.swan,
+                                             self.projections, **kw)
+            return logits, torch.argmax(logits, dim=-1)
+        return self._dispatch("decode", width, fn, [tok, pos, k],
+                              self._dead_decode)
+
+    def _dead_decode(self) -> List[np.ndarray]:
+        """Decode operands with every lane at pos = -1 (a no-op)."""
+        n = self.n_slots
+        return [np.zeros((n,), np.int32), np.full((n,), -1, np.int32),
+                np.full((n,), self._k_fill, np.int32)]
+
+    def _chunk_call(self, toks, slot, start, tlen, k, width: Optional[int],
+                    prefix: Optional[int]):
+        """Batched chunk dispatch -> (logits [P, V], greedy ids [P]); the
+        bucket is (lanes, chunk width, page width | slab read prefix)."""
+        tab = None if width is None else self._device_table(width)
+        n_lanes, C = toks.shape
+
+        def fn(toks, slot, start, tlen, k):
+            kw: Dict[str, Any] = {}
+            if self.swan is not None:
+                kw["k_active"] = k
+            if tab is not None:
+                kw["page_tab"] = tab
+            else:
+                kw["prefix_len"] = prefix
+            logits, _ = self.api.prefill_chunk(
+                self.params, self.cfg, {"tokens": toks}, self.state, slot,
+                start, self.swan, self.projections, true_len=tlen, **kw)
+            return logits, torch.argmax(logits, dim=-1)
+        return self._dispatch("chunk", (n_lanes, C, width, prefix), fn,
+                              [toks, slot, start, tlen, k],
+                              lambda: self._dead_chunk(n_lanes, C))
+
+    def _dead_chunk(self, n_lanes: int, C: int) -> List[np.ndarray]:
+        """Chunk operands with every lane parked at slot = n_slots."""
+        return [np.zeros((n_lanes, C), np.int64),
+                np.full((n_lanes,), self.n_slots, np.int64),
+                np.zeros((n_lanes,), np.int64), np.ones((n_lanes,), np.int64),
+                np.full((n_lanes,), self._k_fill, np.int64)]
+
+    def _transient_state(self, pad_len: int) -> Params:
+        """The single-slot prefill state, cut to a pad bucket: the slab
+        takes all max_seq rows (its insert needs them), the paged engine
+        the bucket's whole pages.  Graphed, one max_seq state serves every
+        bucket and lives with the engine (the graphs point into it);
+        eager, each admission allocates its bucket's rows and the insert
+        drops them."""
+        s1 = self.max_seq
+        if self.paged:
+            ps = self.pool.page_size
+            s1 = -(-pad_len // ps) * ps
+        if self._transient is None:
+            rows = self.max_seq if self._graphs is not None else s1
+            self._transient = self.api.init_serve_state(
+                self.cfg, self.swan, 1, rows, self.device)
+        if not self.paged:
+            return self._transient
+        t = dict(self._transient)
+        for side in ("k", "v"):
+            t[side] = {n: x[:, :, :, :s1] for n, x in t[side].items()}
+        return t
+
+    def _prefill_call(self, toks, k, tlen):
+        """Monolithic prefill of one prompt [1, pad] into the transient ->
+        logits [1, V] at its last real token."""
+        pad_len = toks.shape[1]
+        state1 = self._transient_state(pad_len)
+
+        def fn(toks, k, tlen):
+            for x in _leaves(state1):       # a fresh state, as at init
+                if x.dtype == torch.int32:
+                    x.fill_(-1)
+                else:
+                    hc._bits(x).zero_()
+            kw = {"k_active": k} if self.swan is not None else {}
+            logits, _ = self.api.prefill(
+                self.params, self.cfg, {"tokens": toks}, state1, self.swan,
+                self.projections, true_len=tlen if self._bucketing else None,
+                **kw)
+            return logits[:, -1]
+        return self._dispatch(
+            "prefill", pad_len, fn, [toks, k, tlen],
+            lambda: [np.zeros((1, pad_len), np.int64),
+                     np.asarray(self._k_fill, np.int32),
+                     np.asarray(1, np.int32)])
+
+    def _insert_call(self, pad_len: int, slot, phys=None) -> None:
+        """Insert the transient into lane ``slot`` (``n_slots`` parks it:
+        ring and slab writes drop; paged, ``phys`` names the trash page)."""
+        state1 = self._transient_state(pad_len)
+        if self.paged:
+            ps = self.pool.page_size
+
+            def fn(slot, phys):
+                pc.paged_insert_prefill_(self.state, state1, slot, phys, ps)
+            n_pg = -(-pad_len // ps)
+            self._dispatch("insert_paged", pad_len, fn, [slot, phys],
+                           lambda: [np.asarray(self.n_slots, np.int64),
+                                    np.full((n_pg,), pc.TRASH_PAGE,
+                                            np.int64)])
+        else:
+            def fn(slot):
+                _insert_slot_(self.state, state1, slot)
+            self._dispatch("insert", pad_len, fn, [slot],
+                           lambda: [np.asarray(self.n_slots, np.int64)])
+        if self._graphs is None:
+            self._transient = None      # eager: freed with the admission
+
+    # ------------------------------------------------------------------
+    # Token fetch
+    # ------------------------------------------------------------------
+
+    def _fetch_buffer(self, key, shape, dtype) -> torch.Tensor:
+        """A host buffer of the token fetch (pinned when the engine runs
+        on the card), allocated once per key."""
+        buf = self._fetch_bufs.get(key)
+        if buf is None:
+            buf = torch.empty(shape, dtype=dtype,
+                              pin_memory=self.device.type == "cuda")
+            self._fetch_bufs[key] = buf
+        return buf
+
+    def _sample(self, logits: torch.Tensor, req, n_prev: int) -> int:
         """Host-side sampling of one token from a [V] logits row: the first
         argmax for greedy requests; for temperature requests a draw from a
         generator seeded by (request seed, draw index)."""
@@ -243,14 +512,76 @@ class ServeEngine:
         return int(sample_token(logits.float().cpu()[None], req.temperature,
                                 gen)[0])
 
-    def _lane_tokens(self, logits: torch.Tensor, picks) -> List[int]:
-        """One token per (lane, request, draw index): greedy lanes read the
-        device argmax ([N] ids to the host), temperature lanes fetch their
-        logits row only."""
-        greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+    def _start_fetch(self, src: str, logits: torch.Tensor,
+                     greedy: torch.Tensor, picks, step: int,
+                     lanes=None) -> _PendingTokens:
+        """Start the device-to-host token copy without blocking: the greedy
+        ids [N] and, only for temperature lanes, their logits rows,
+        gathered on the device at a power-of-two width (extra rows repeat
+        lane 0) into pinned buffers, then a CUDA event.  The copies are
+        ordered on the stream before any later dispatch can overwrite the
+        graph's outputs."""
+        n = greedy.shape[0]
+        temp = [lane for lane, req, _ in picks if req.temperature > 0.0]
+        rows = None
+        if temp:
+            idx = np.zeros((_pow2(len(temp)),), np.int64)
+            idx[:len(temp)] = temp
+            gathered = logits.index_select(0, self._to_device(idx))
+            rows = self._fetch_buffer((src, n, idx.shape[0]),
+                                      tuple(gathered.shape), gathered.dtype)
+            rows.copy_(gathered, non_blocking=True)
+        ids = self._fetch_buffer((src, n), (n,), greedy.dtype)
+        ids.copy_(greedy, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return _PendingTokens(greedy=ids, rows=rows, temp=temp,
+                              picks=list(picks), step=step, lanes=lanes,
+                              event=event)
+
+    def _resolve_tokens(self, pending: _PendingTokens) -> List[int]:
+        """Wait for a fetch and sample one token per (lane, request, draw
+        index): the engine's one decode-token host sync."""
+        if pending.event is not None:
+            pending.event.synchronize()
+        greedy = pending.greedy.tolist()
         return [int(greedy[lane]) if req.temperature <= 0.0
-                else self._sample(logits[lane], req, draw)
-                for lane, req, draw in picks]
+                else self._sample(pending.rows[pending.temp.index(lane)],
+                                  req, draw)
+                for lane, req, draw in pending.picks]
+
+    def _lane_tokens(self, src: str, logits, greedy, picks) -> List[int]:
+        """Synchronous fetch: start the copy and resolve it at once (chunk
+        first tokens, and decode without ``async_fetch``)."""
+        return self._resolve_tokens(
+            self._start_fetch(src, logits, greedy, picks, self.step_count))
+
+    def _resolve_pending(self) -> None:
+        """Resolve the previous step's decode fetch at the top of
+        ``step()``, before any scheduling decision, with the dispatch
+        step's stamp: completion accounting equals the synchronous
+        path's."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return
+        toks = self._resolve_tokens(pending)
+        step_now = self.step_count
+        self.step_count = pending.step
+        try:
+            self._apply_decode_tokens(pending.lanes, toks)
+        finally:
+            self.step_count = step_now
+
+    def _apply_decode_tokens(self, lanes, toks) -> None:
+        """One decode step's tokens into the scheduler: advance positions,
+        extend transcripts, feed ``next_tok``, retire finished slots."""
+        for i, tok in zip(lanes, toks):
+            self.slot_pos[i] += 1
+            self.slots[i].generated.append(tok)
+            self.next_tok[i] = tok
+            self._maybe_retire(i)
 
     def _bucket_len(self, plen: int) -> int:
         """Smallest power-of-two bucket holding ``plen`` (capped at
@@ -302,34 +633,28 @@ class ServeEngine:
         plen = len(req.tokens)
         pad_len = self._bucket_len(plen)
         if self.paged:
-            # the single-slot transient follows the prompt bucket (whole
-            # pages); only that page prefix is scattered into the pool
-            ps = self.pool.page_size
-            s1 = -(-pad_len // ps) * ps
-        else:
-            s1 = self.max_seq
-        state1 = self.api.init_serve_state(self.cfg, self.swan, 1, s1,
-                                           self.device)
+            # pages first: a pool growth re-warms a warmed engine, which
+            # reuses the transient that the prefill fills
+            self._ensure_pages(slot, self._sparse_tokens(plen - 1))
         toks = np.zeros((1, pad_len), np.int64)
         toks[0, :plen] = np.asarray(req.tokens, np.int64)
-        kw = {"k_active": int(k_req)} if self.swan is not None else {}
-        logits, state1 = self.api.prefill(
-            self.params, self.cfg,
-            {"tokens": torch.as_tensor(toks, device=self.device)}, state1,
-            self.swan, self.projections,
-            true_len=plen if self._bucketing else None, **kw)
+        logits = self._prefill_call(toks, np.asarray(k_req, np.int32),
+                                    np.asarray(plen, np.int32))
         self.dispatches["prefill"] += 1
+        # sampled before the insert dispatch, which may reuse the graph
+        # pool memory that holds these logits
+        first = self._sample(logits[0], req, 0)
+        slot_v = np.asarray(slot, np.int64)
         if self.paged:
-            self._ensure_pages(slot, self._sparse_tokens(plen - 1))
-            phys = torch.as_tensor(self.pool.table[slot, :s1 // ps],
-                                   device=self.device)
-            pc.paged_insert_prefill_(self.state, state1, slot, phys, ps)
+            ps = self.pool.page_size
+            self._insert_call(pad_len, slot_v,
+                              self.pool.table[slot, :-(-pad_len // ps)])
         else:
-            _insert_slot_(self.state, state1, slot)
+            self._insert_call(pad_len, slot_v)
         self.slots[slot] = _Slot(req=req, admitted_step=self.step_count)
         self.slot_pos[slot] = plen
         self.slot_k[slot] = k_req
-        self._record_first_token(slot, self._sample(logits[0, -1], req, 0))
+        self._record_first_token(slot, first)
         self._maybe_retire(slot)
 
     def _maybe_retire(self, slot: int) -> None:
@@ -427,22 +752,34 @@ class ServeEngine:
                                   dtype=hc._bits(x).dtype, device=x.device)
                 side[name] = torch.cat([hc._bits(x), pad], dim=1).view(x.dtype)
         self.pool.grow(new)
+        if self._graphs is not None:
+            # the graphs point into the old pool: capture them anew, all
+            # at once on a warmed engine (as the reference re-warms)
+            self._graphs.drop()
+            if self._warmed:
+                self.warmup(self._warm_prompt_len)
 
     # ------------------------------------------------------------------
     # Engine step
     # ------------------------------------------------------------------
 
     def _device_table(self, width: int) -> torch.Tensor:
-        """Device copy of the page table's first ``width`` columns, cached
-        per width and re-uploaded only when the host table changed."""
-        hit = self._table_cache.get(width)
-        if hit is None or hit[0] != self.pool.version:
-            tab = torch.as_tensor(
-                np.ascontiguousarray(self.pool.table[:, :width]),
-                device=self.device)
-            hit = (self.pool.version, tab)
-            self._table_cache[width] = hit
-        return hit[1]
+        """The static device buffer of the page table's first ``width``
+        columns, refreshed in place (an asynchronous host-to-device copy,
+        ordered before the dispatch that reads it) only when the host
+        table changed."""
+        buf = self._tables.get(width)
+        if buf is None:
+            buf = torch.zeros((self.n_slots, width), dtype=torch.int32,
+                              device=self.device)
+            self._tables[width] = buf
+            self._table_ver[width] = -1
+        if self._table_ver[width] != self.pool.version:
+            buf.copy_(torch.from_numpy(
+                np.ascontiguousarray(self.pool.table[:, :width])),
+                non_blocking=True)
+            self._table_ver[width] = self.pool.version
+        return buf
 
     def _select_prefills(self) -> List[int]:
         """Round-robin up to ``prefill_slots`` PREFILLING slots within the
@@ -493,9 +830,7 @@ class ServeEngine:
             toks[lane, :t] = np.asarray(s.req.tokens[st0:st0 + t], np.int64)
             slot_v[lane], start_v[lane], tlen_v[lane] = i, st0, t
             k_v[lane] = self.slot_k[i]
-        kw: Dict[str, Any] = {}
-        if self.swan is not None:
-            kw["k_active"] = k_v
+        width = prefix = None
         if self.paged:
             for lane, i in enumerate(sel):
                 # map pages for the tokens this chunk winnows; overshoot
@@ -503,14 +838,11 @@ class ServeEngine:
                 self._ensure_pages(i, self._sparse_tokens(
                     int(start_v[lane]) + lens[i] - 1))
             pg = _pow2(max(1, max(int(self.pool.n_mapped[i]) for i in sel)))
-            kw["page_tab"] = self._device_table(min(pg, self.pool.pages_per_seq))
+            width = min(pg, self.pool.pages_per_seq)
         else:
-            kw["prefix_len"] = min(_pow2(int(start_v.max()) + C), self.max_seq)
-        logits, self.state = self.api.prefill_chunk(
-            self.params, self.cfg,
-            {"tokens": torch.as_tensor(toks, device=self.device)}, self.state,
-            slot_v, start_v, self.swan, self.projections, true_len=tlen_v,
-            **kw)
+            prefix = min(_pow2(int(start_v.max()) + C), self.max_seq)
+        logits, greedy = self._chunk_call(toks, slot_v, start_v, tlen_v, k_v,
+                                          width, prefix)
         self.dispatches["chunk"] += 1
         fins = []
         for lane, i in enumerate(sel):
@@ -521,7 +853,8 @@ class ServeEngine:
         if not fins:
             return
         firsts = self._lane_tokens(
-            logits, [(lane, self.slots[i].req, 0) for lane, i in fins])
+            "chunk", logits, greedy,
+            [(lane, self.slots[i].req, 0) for lane, i in fins])
         for (_, i), first in zip(fins, firsts):
             self.slots[i].state = "decoding"
             self.slot_pos[i] = len(self.slots[i].req.tokens)
@@ -529,41 +862,41 @@ class ServeEngine:
             self._maybe_retire(i)
 
     def step(self) -> int:
-        """One scheduler iteration: admit -> one batched chunk dispatch ->
-        one batched decode dispatch -> retire.  Returns the number of
-        sequences that finished."""
+        """One scheduler iteration: resolve the previous step's token fetch
+        (``async_fetch``) -> admit -> one batched chunk dispatch -> one
+        batched decode dispatch -> retire (or leave the fetch in flight).
+        Returns the number of sequences that finished during this call;
+        with ``async_fetch`` a dispatch's completions surface one call
+        later, with the same step stamps."""
         n_done0 = len(self.completions)
+        self._resolve_pending()
         self._admit_pending()
         if self.prefill_chunk is not None:
             self._advance_prefills()
         active = [i for i, s in enumerate(self.slots)
                   if s is not None and s.state == "decoding"]
         if active:
-            kw: Dict[str, Any] = {}
-            if self.swan is not None:
-                kw["k_active"] = torch.as_tensor(self.slot_k,
-                                                 device=self.device)
+            width = None
             if self.paged:
                 # map the page each sequence's decode is about to winnow
                 # into, then ship a power-of-two prefix of the table
                 for i in active:
                     self._ensure_pages(i, self._sparse_tokens(
                         int(self.slot_pos[i])))
-                kw["page_tab"] = self._device_table(self._page_bucket(active))
-            logits, self.state = self.api.decode_step(
-                self.params, self.cfg,
-                torch.as_tensor(self.next_tok, device=self.device),
-                torch.as_tensor(self.slot_pos, device=self.device),
-                self.state, self.swan, self.projections, **kw)
+                width = self._page_bucket(active)
+            logits, greedy = self._decode_call(self.next_tok, self.slot_pos,
+                                               self.slot_k, width)
             self.dispatches["decode"] += 1
-            toks = self._lane_tokens(
-                logits, [(i, self.slots[i].req, len(self.slots[i].generated))
-                         for i in active])
-            for i, tok in zip(active, toks):
-                self.slot_pos[i] += 1
-                self.slots[i].generated.append(tok)
-                self.next_tok[i] = tok
-                self._maybe_retire(i)
+            picks = [(i, self.slots[i].req, len(self.slots[i].generated))
+                     for i in active]
+            if self.async_fetch:
+                self._pending = self._start_fetch(
+                    "decode", logits, greedy, picks, self.step_count,
+                    lanes=active)
+            else:
+                self._apply_decode_tokens(
+                    active, self._lane_tokens("decode", logits, greedy,
+                                              picks))
         self.step_count += 1
         return len(self.completions) - n_done0
 
@@ -656,11 +989,13 @@ def _leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
-def _insert_slot_(big: Params, one: Params, slot: int) -> None:
-    """Copy a batch=1 prefilled slab state [L, 1, ...] into lane ``slot`` of
-    the batched state [L, n_slots, ...], in place."""
+def _insert_slot_(big: Params, one: Params, slot) -> None:
+    """Copy a batch=1 prefilled slab state [L, 1, ...] into lane ``slot``
+    of the batched state [L, n_slots, ...], in place; ``slot = n_slots``
+    (parked) writes nothing."""
     for name, b in big.items():
         if isinstance(b, dict):
             _insert_slot_(b, one[name], slot)
         else:
-            hc._bits(b)[:, slot] = hc._bits(one[name][:, 0].to(b.dtype))
+            hc.write_lanes_(b.movedim(1, 0), one[name].movedim(1, 0),
+                            torch.as_tensor(slot, device=b.device).reshape(1))

@@ -3,18 +3,24 @@
 Port of ``repro.runtime.serve_loop`` (without metrics).  The session's
 caches live on its device and prefill/decode update them in place.  On the
 card every layer's SWAN decode read goes through the CUDA kernel
-(``repro_torch.kernels.swan_decode``).
+(``repro_torch.kernels.swan_decode``), and with ``graphs`` (on by default
+there) each decode step is one CUDA-graph replay, with the token and
+``pos`` as static device operands, and each prompt shape's prefill one
+graph, as ``jax.jit`` compiles the reference's per shape
+(``runtime.graphs``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import projections as proj_mod
 from repro_torch.core.analytical import model_cache_footprint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import get_model, swan_applicable
+from repro_torch.runtime.graphs import GraphSet
 from repro_torch.runtime.sampling import sample_token
 
 Params = Dict[str, Any]
@@ -49,12 +55,16 @@ class ServeSession:
 
     ``device`` None means the card: constructing a session without a card
     and without ``device="cpu"`` raises.  ``params`` must already live on
-    that device."""
+    that device.  ``graphs`` (None: on for a CUDA device) replays prefill
+    and decode as CUDA graphs; ``graphs=True`` without a card raises."""
 
     def __init__(self, cfg, params, swan=None, projections=None,
                  max_seq: int = 4096, batch: int = 1,
-                 device: DeviceLike = None):
+                 graphs: Optional[bool] = None, device: DeviceLike = None):
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self._graphs = GraphSet(self.device) if graphs else None
         self.cfg = cfg
         self.api = get_model(cfg)
         self.swan = (swan if (swan and swan.enabled and swan_applicable(cfg))
@@ -77,19 +87,43 @@ class ServeSession:
         if tokens.shape[1] > self.max_seq:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds "
                              f"max_seq={self.max_seq}")
-        logits, self.state = self.api.prefill(self.params, self.cfg, batch_in,
-                                              self.state, self.swan,
-                                              self.projections)
+
+        def fn(tokens):
+            logits, _ = self.api.prefill(self.params, self.cfg,
+                                         {"tokens": tokens}, self.state,
+                                         self.swan, self.projections)
+            return logits[:, -1]
+        if self._graphs is None:
+            logits = fn(tokens)
+        else:
+            # the capture's zero prompt writes the rows the real one
+            # rewrites
+            logits = self._graphs.run(
+                "prefill", tuple(tokens.shape), fn, [tokens],
+                lambda: [torch.zeros_like(tokens)]).clone()
         self.pos = tokens.shape[1]
-        return logits[:, -1]
+        return logits
 
     def decode(self, token: torch.Tensor) -> torch.Tensor:
         if self.pos >= self.max_seq:
             raise ValueError(f"position {self.pos} is past max_seq="
                              f"{self.max_seq}")
-        logits, self.state = self.api.decode_step(
-            self.params, self.cfg, token, self.pos, self.state, self.swan,
-            self.projections)
+        if self._graphs is None:
+            logits, self.state = self.api.decode_step(
+                self.params, self.cfg, token, self.pos, self.state, self.swan,
+                self.projections)
+        else:
+            def fn(tok, pos):
+                logits, _ = self.api.decode_step(
+                    self.params, self.cfg, tok, pos, self.state, self.swan,
+                    self.projections)
+                return logits
+            B = token.shape[0]
+            # dead operands: every lane at pos = -1 changes nothing
+            logits = self._graphs.run(
+                "decode", B, fn, [token, np.full((B,), self.pos, np.int32)],
+                lambda: [torch.zeros_like(token),
+                         np.full((B,), -1, np.int32)]).clone()
         self.pos += 1
         return logits
 

@@ -107,7 +107,8 @@ def test_launcher_runs_on_cpu(capsys):
 
 
 def test_port_runs_without_jax_or_the_reference(tmp_path):
-    """The lockstep session, the paged, chunked engine and the kernel
+    """The lockstep session, the paged, chunked engine (with its graph
+    family enumerated by ``runtime.warmup``) and the kernel
     microbenchmark (all six kernels' wrappers) run on the CPU with neither
     ``jax`` nor any ``repro.`` or ``benchmarks`` module imported."""
     code = (
@@ -117,6 +118,7 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
         "from repro_torch.models.registry import get_model\n"
         "from repro_torch.runtime.serve_loop import ServeSession, calibrate_swan\n"
         "import repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels\n"
+        "import repro_torch.runtime.warmup, repro_torch.runtime.graphs\n"
         "cfg = get_smoke_config('llama3-8b')\n"
         "api = get_model(cfg)\n"
         "p = api.init_params(cfg, 0, 'cpu')\n"
@@ -131,6 +133,8 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
         "done = e.run([Request(uid=i, tokens=list(range(3, 3 + 5 * i)),"
         " max_new_tokens=3, k=4) for i in (1, 2, 3)])\n"
         "assert sorted(len(c.tokens) for c in done) == [3, 3, 3]\n"
+        "fam = repro_torch.runtime.warmup.executable_family(e)\n"
+        "assert fam['expected']['chunk']['paged'] > 0\n"
         "from repro_torch.benchmarks import bench_kernels\n"
         "import repro_torch.analysis.roofline\n"
         "import repro_torch.kernels.flash_prefill.ops\n"
