@@ -61,8 +61,27 @@ Phases, each of which must pass (any failure exits non-zero):
               graphed without a warmup (prefill and insert graphs captured
               at first use) against eager, slab and paged.  Warmup seconds,
               graph counts, graph memory, and eager vs graphed step times.
+              The graphed engines run instrumented (``repro_torch.obs``):
+              their warmup's captures in ``serve_compile_total{phase=
+              "warmup"}``, none in ``{phase="serve"}`` over the trace, the
+              ``kv_cache_*`` gauges equal to ``cache_report()``; the eager
+              baselines run with ``metrics=False``.  Each warmed engine
+              then serves the trace with metrics off, on, on, off: the
+              same tokens and dispatches, and graphed step ms with
+              metrics on and off.
 8. chunk_exact — 4 layers at full retention: a prompt prefilled in two
               chunks (slab, paged) against the dense monolithic prefill.
+9. obs      — the launcher (``repro_torch.launch.serve.main``) serving
+              llama3-8b on the paged pool with chunked prefill, graphed
+              without a warmup (buckets captured at first use), with
+              ``--metrics-out``, ``--trace-out`` and ``--profile-steps
+              4``: the Prometheus file parses, its token count, the
+              trace's first-token and retire events and its mid-serve
+              captures agree with the engine, and the profile holds the
+              B2 and B4 records of the window's graph replays (up to
+              three runs: none may count more than 32 x the window's
+              dispatches, one must count exactly).  Then the graphed step
+              ms of the graphs phase with metrics on and off.
 
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
@@ -1171,9 +1190,9 @@ def check_launches(run, layout, n_layers, label):
 
 
 def engine_run(kernels, model, label, **kw):
-    """The trace on a fresh EAGER engine (the baseline of the graphs
-    phase)."""
-    eng = make_engine(model, graphs=False, **kw)
+    """The trace on a fresh EAGER engine without metrics (the baseline of
+    the graphs phase)."""
+    eng = make_engine(model, graphs=False, metrics=False, **kw)
     cfg = model[0]
     run = drive(kernels, eng, engine_requests(cfg), label)
     check_launches(run, label, cfg.n_layers, label)
@@ -1413,15 +1432,16 @@ def engine_graphs(kernels, model, eager):
     engine steps counts B1 and B3 (slab) or B2 and B4 (paged)
     executions."""
     import torch
+    from repro_torch.obs import EventTrace
     cfg = model[0]
-    counts = {}
+    counts, on_off = {}, {}
     for layout, kw in (("slab", {}), ("paged", dict(paged=True,
                                                     page_size=PS))):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         mem0 = torch.cuda.memory_allocated()
-        eng = make_engine(model, graphs=True, **kw)
+        eng = make_engine(model, graphs=True, trace=EventTrace(), **kw)
         mem_state = torch.cuda.memory_allocated()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1442,6 +1462,11 @@ def engine_graphs(kernels, model, eager):
         bad += [f"chunk[{b}]" for b, n in expected["chunk"].items()
                 if census["chunk"].get(b, 0) < n]
         check(not bad, f"[{layout} graphed] census below expected in {bad}")
+        check(compiles(eng.metrics, "warmup") == rep["captures"]
+              and compiles(eng.metrics, "serve") == 0,
+              f"[{layout} graphed] serve_compile_total "
+              f"{eng.metrics.snapshot()['metrics'].get('serve_compile_total')}"
+              f" != the warmup's {rep['captures']} captures")
         lazy0 = sum(g.lazy_captures.values())
         # the paged engine fetches its tokens asynchronously
         eng.async_fetch = layout == "paged"
@@ -1457,6 +1482,7 @@ def engine_graphs(kernels, model, eager):
               f"{base['dispatches']}")
         check(run["report"] == base["report"],
               f"[{label}] cache_report differs from the eager engine's")
+        obs_checks(eng, run, label)
         e, r = base["stats"], run["stats"]
         log(f"  [{label}] vs eager: wall {r['wall_s']:.2f} vs "
             f"{e['wall_s']:.2f} s; decode-only steps {r['decode_ms']:.1f} "
@@ -1467,6 +1493,7 @@ def engine_graphs(kernels, model, eager):
             f"{e['peak_gib']:.2f} GiB; tokens, dispatches and "
             "cache_report equal")
         counts[f"graphs_engine_{layout}"] = run["launches"]
+        on_off[layout] = metrics_on_off(kernels, eng, run, label)
         if layout == "slab":
             census0 = eng.executable_census()
             drive(kernels, eng, mixed_requests(cfg), "slab graphed mixed")
@@ -1497,7 +1524,72 @@ def engine_graphs(kernels, model, eager):
               "mid-serve after warmup")
         del eng, g
     monolithic_graphs(kernels, model)
-    return counts
+    return counts, on_off
+
+
+def compiles(metrics, phase):
+    """``serve_compile_total``'s captures in ``phase``, over its kinds."""
+    fam = metrics.snapshot()["metrics"].get("serve_compile_total")
+    return sum(ser["value"] for ser in (fam or {"series": []})["series"]
+               if ser["labels"]["phase"] == phase)
+
+
+def obs_checks(eng, run, label):
+    """An instrumented engine's metrics after it served the engine trace
+    once: no capture mid-serve, the ``kv_cache_*`` gauges equal to
+    ``cache_report()``, every token counted and every request's first
+    token and retirement traced."""
+    m, trace = eng.metrics, eng.trace
+    rep = eng.cache_report()
+    n_tok = sum(len(t) for t in run["tokens"].values())
+    n_req = len(run["tokens"])
+    got = {"serve_compiles": compiles(m, "serve"),
+           "reserved": m.value("kv_cache_reserved_bytes"),
+           "live": m.value("kv_cache_live_bytes"),
+           "tokens": m.value("serve_tokens_generated_total"),
+           "first_token": len(trace.select("first_token")),
+           "retire": len(trace.select("retire"))}
+    want = {"serve_compiles": 0, "reserved": rep["reserved_bytes"],
+            "live": rep["live_bytes"], "tokens": n_tok,
+            "first_token": n_req, "retire": n_req}
+    log(f"  [{label}] obs: {got}")
+    check(got == want, f"[{label}] metrics/trace {got} != expected {want}")
+
+
+def set_obs(eng, metrics, trace):
+    """Point a live engine (and its page pool) at another registry and
+    event sink."""
+    eng.metrics, eng.trace = metrics, trace
+    if eng.pool is not None:
+        eng.pool.bind_obs(metrics, trace)
+
+
+def metrics_on_off(kernels, eng, first, label):
+    """Serve the engine trace on a warmed engine with metrics and trace
+    off, on, on, off: the first run's tokens every time.  Returns the
+    runs' stats by mode."""
+    from repro_torch.obs import NULL_REGISTRY, EventTrace, MetricsRegistry
+    cfg = eng.cfg
+    keep = (eng.metrics, eng.trace)
+    runs = {"on": [], "off": []}
+    try:
+        for mode in ("off", "on", "on", "off"):
+            if mode == "on":
+                set_obs(eng, MetricsRegistry(), EventTrace())
+            else:
+                set_obs(eng, NULL_REGISTRY, None)
+            # the prefill round-robin carries over from the last run:
+            # restart it, so that every run has the first run's schedule
+            eng._prefill_rr = 0
+            r = drive(kernels, eng, engine_requests(cfg),
+                      f"{label} metrics {mode}")
+            check(r["tokens"] == first["tokens"]
+                  and r["dispatches"] == first["dispatches"],
+                  f"[{label} metrics {mode}] tokens or dispatches differ")
+            runs[mode].append(r["stats"])
+    finally:
+        set_obs(eng, *keep)
+    return runs
 
 
 MONO_LENS = (100, 300, 640)     # pads 128, 512, 1024
@@ -1552,6 +1644,146 @@ def monolithic_graphs(kernels, model):
         check(census["prefill"] == census[ins] == len(MONO_LENS)
               and lazy.get("prefill") == len(MONO_LENS),
               f"[{layout} monolithic] census {census}, lazy captures {lazy}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: observability through the launcher
+# ---------------------------------------------------------------------------
+
+OBS_REQUESTS, OBS_PROMPT, OBS_NEW, OBS_STEPS = 6, 512, 16, 4
+
+
+def replay_records(path):
+    """The SWAN kernel records of a ``torch.profiler`` Chrome trace, by
+    kind (``SWAN_EXECUTIONS``): those the card ran inside graph replays
+    (the kernel's correlation id is a ``cudaGraphLaunch``'s) and all of
+    them (a capture's warm run launches its kernels eagerly)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    graph_launch = {e["args"]["correlation"] for e in events
+                    if e.get("name", "").startswith("cudaGraphLaunch")
+                    and "correlation" in e.get("args", {})}
+    if not graph_launch:
+        cats = Counter(e.get("cat") for e in events)
+        names = sorted({e.get("name", "") for e in events
+                        if "Graph" in e.get("name", "")})[:8]
+        log(f"  [obs launcher] no cudaGraphLaunch with a correlation id in "
+            f"the trace: categories {dict(cats)}; graph names {names}")
+    replayed, seen = Counter(), Counter()
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for kind, names in SWAN_EXECUTIONS.items():
+            if any(n in e.get("name", "") for n in names):
+                seen[kind] += 1
+                if e.get("args", {}).get("correlation") in graph_launch:
+                    replayed[kind] += 1
+    return dict(replayed), dict(seen), len(graph_launch)
+
+
+def launcher_run(kernels, tmp: Path):
+    """One launcher run with the obs flags into ``tmp``: checks its
+    metrics file, trace and mid-serve captures against the engine it
+    returns.  Returns (launch counts, the profile's replayed SWAN records,
+    those expected from the window's dispatches)."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.obs import EventTrace, parse_prometheus
+    prom, jsonl, prof = tmp / "metrics.prom", tmp / "trace.jsonl", tmp / "prof"
+    argv = ["--arch", "llama3-8b", "--swan", "--k", str(K), "--buffer",
+            str(BUF), "--max-seq", str(S), "--batch", str(ENGINE_SLOTS),
+            "--requests", str(OBS_REQUESTS), "--prompt-len", str(OBS_PROMPT),
+            "--tokens", str(OBS_NEW), "--engine", "--paged", "--page-size",
+            str(PS), "--prefill-chunk", str(ENGINE_CHUNK), "--prefill-slots",
+            str(ENGINE_LANES), "--metrics-out", str(prom), "--trace-out",
+            str(jsonl), "--profile-steps", str(OBS_STEPS), "--profile-dir",
+            str(prof)]
+    for k in kernels:
+        k.launches = 0
+    eng = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    samples = parse_prometheus(prom.read_text())["samples"]
+    events = EventTrace.read(str(jsonl))
+    lazy = dict(eng._graphs.lazy_captures)
+    n_tok = sum(len(c.tokens) for c in eng.completions)
+    serve_caps = sum(v for (name, labels), v in samples.items()
+                     if name == "serve_compile_total"
+                     and ("phase", "serve") in labels)
+    got = {"tokens": samples[("serve_tokens_generated_total", ())],
+           "first_token": sum(e["event"] == "first_token" for e in events),
+           "retire": sum(e["event"] == "retire" for e in events),
+           "serve_captures": serve_caps}
+    want = {"tokens": n_tok, "first_token": OBS_REQUESTS,
+            "retire": len(eng.completions), "serve_captures":
+            sum(lazy.values())}
+    log(f"  [obs launcher] {got}; dispatches {eng.dispatches}, captured "
+        f"mid-serve {lazy}; launches {launches}")
+    check(got == want and n_tok == OBS_REQUESTS * OBS_NEW
+          and want["serve_captures"] > 0,
+          f"[obs launcher] metrics/trace {got} != expected {want}")
+    d = eng.dispatches
+    check(launches["swan_decode_paged"]
+          == eng.cfg.n_layers * (d["decode"] + lazy.get("decode", 0))
+          and launches["swan_chunk_stats_paged"]
+          == eng.cfg.n_layers * (d["chunk"] + lazy.get("chunk", 0)),
+          f"[obs launcher] launches {launches} != {eng.cfg.n_layers} x "
+          f"(dispatches {d} + captures' warm runs {lazy})")
+    # the profiled window: its steps' dispatches, each one graph replay
+    (p0,) = [e["step"] for e in events if e["event"] == "profile_start"]
+    (p1,) = [e["step"] for e in events if e["event"] == "profile_stop"]
+    win = [e["event"] for e in events if p0 <= e["step"] < p1]
+    dd, dc = win.count("decode_dispatch"), win.count("chunk_dispatch")
+    path = eng._profiler.path
+    replayed, seen, n_launch = replay_records(path)
+    log(f"  [obs launcher] profile {Path(path).name} "
+        f"({Path(path).stat().st_size / 2**20:.1f} MiB): steps {p0}-{p1}, "
+        f"{dc} chunk and {dd} decode dispatches, {n_launch} graph launches; "
+        f"SWAN records {seen}, of them in replays {replayed}")
+    check(dd > 0 and dc > 0 and seen.get("decode", 0) > 0
+          and seen.get("chunk", 0) > 0,
+          f"[obs launcher] the profile holds no B2 or no B4 record: {seen}")
+    n = eng.cfg.n_layers
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, replayed, {"decode": n * dd, "decode_merge": n * dd,
+                                "chunk": n * dc}
+
+
+def obs_phase(kernels, attempts=3):
+    """The launcher with the obs flags, up to ``attempts`` runs: each run's
+    profile may count no more replayed SWAN records than 32 x its window's
+    dispatches, and one must count exactly (``check_executions``'
+    tolerance for records the profiler loses).  Returns the launch counts
+    of the last run."""
+    import tempfile
+    for i in range(attempts):
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, got, want = launcher_run(kernels, Path(tmp))
+        got = {kind: got.get(kind, 0) for kind in want}
+        check(all(got[k] <= want[k] for k in want),
+              f"[obs launcher] the profile saw {got} replayed records, more "
+              f"than the expected {want}")
+        if got == want:
+            log(f"  [obs launcher] run {i + 1}: the profile saw the expected "
+                f"{want} replayed records")
+            return launches
+        log(f"  [obs launcher] run {i + 1}: the profile saw {got}, expected "
+            f"{want}; running the launcher again")
+    check(False, "[obs launcher] no profile saw the expected records")
+
+
+def log_on_off(on_off, smi):
+    """The graphs phase's engine trace served with metrics on and off."""
+    for layout, runs in on_off.items():
+        row = {mode: (statistics.mean(r["decode_ms"] for r in rs),
+                      statistics.mean(r["chunk_ms"] for r in rs),
+                      [round(r["wall_s"], 3) for r in rs])
+               for mode, rs in runs.items()}
+        log(f"  [obs {layout} graphed] metrics on vs off ({smi}): "
+            f"decode-only steps {row['on'][0]:.2f} vs {row['off'][0]:.2f} "
+            f"ms, chunk steps {row['on'][1]:.2f} vs {row['off'][1]:.2f} ms; "
+            f"wall s on {row['on'][2]}, off {row['off'][2]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1770,7 +2002,7 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
 PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs",
-          "chunk_exact")
+          "chunk_exact", "obs")
 
 
 def main(argv=None) -> int:
@@ -1859,7 +2091,8 @@ def main(argv=None) -> int:
         record("graphs_lockstep", lockstep_graphs(KERNELS, model))
         log(f"[graphs] ServeEngine graphed, slab then paged, after "
             f"warmup(max_prompt_len={WARM_PROMPT})")
-        for path, counts in engine_graphs(KERNELS, model, eager_runs).items():
+        counts_by_path, on_off = engine_graphs(KERNELS, model, eager_runs)
+        for path, counts in counts_by_path.items():
             record(path, counts)
     del model
     gc.collect()
@@ -1869,6 +2102,13 @@ def main(argv=None) -> int:
             "(slab, paged) vs the dense monolithic prefill")
         worst = chunk_exact_phase(KERNELS)
         log(f"  worst relative logit error {worst:.4f}")
+    if "obs" in phases:
+        log("[obs] the launcher: llama3-8b, --engine --paged --prefill-chunk "
+            "256, graphed without a warmup, with --metrics-out, --trace-out "
+            "and --profile-steps 4")
+        record("obs_launcher", obs_phase(KERNELS))
+        if "graphs" in phases:
+            log_on_off(on_off, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if set(phases) != set(PHASES):
         return 0                        # a partial run prints no result

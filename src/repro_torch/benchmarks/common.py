@@ -5,10 +5,13 @@
   whose result lies on the card is timed with CUDA events: the median
   over the launches, the L2 cache flushed before each one (``time_ms``);
   a CPU result with ``perf_counter``.
+* ``serve_model`` — the serve benches' model: the reference benches' tiny
+  float32 llama3-8b variant, or llama3-8b at full width in bf16.
 * ``bench_record`` / ``BenchRecorder`` — machine-readable run artifacts:
-  a benchmark writes ``BENCH_<name>.json`` (CSV rows, gate results, torch
-  version, and the card's name or ``cpu``) into ``$REPRO_BENCH_OUT``
-  (default ``bench_out/``).
+  a benchmark writes ``BENCH_<name>.json`` (CSV rows, gate results,
+  optional ``repro_torch.obs`` metrics snapshots, torch version, and the
+  card's name or ``cpu``) into ``$REPRO_BENCH_OUT`` (default
+  ``bench_out/``).
 
 The reference's ``trained_tiny_lm`` and NLL helpers wait for the port's
 training slice.
@@ -26,6 +29,31 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 L2_FLUSH_BYTES = 256 << 20       # > the H100's 50 MB L2: each launch starts cold
+
+
+def serve_model(smoke: bool, device: torch.device, calib_len: int = 32):
+    """The serve benches' model on ``device``, from seeded weights with
+    SWAN calibrated and absorbed: with ``smoke`` the reference benches'
+    own float32 llama3-8b variant (2 layers, d_model 64), else llama3-8b
+    at full width in bf16.  On the card the kernel libraries are built
+    first, so that no timed call pays ``nvcc``.  Returns (cfg, params,
+    projections, absorbed)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.build import build_all
+    from repro_torch.launch.io import make_batch
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime.serve_loop import calibrate_swan
+    if device.type == "cuda":
+        build_all(KERNELS)
+    cfg = (get_smoke_config("llama3-8b").replace(
+        dtype="float32", param_dtype="float32") if smoke
+        else get_config("llama3-8b"))
+    api = get_model(cfg)
+    params = api.init_params(cfg, 0, device)
+    pj = calibrate_swan(api, cfg, params,
+                        make_batch(cfg, 2, calib_len, seed=3, device=device))
+    return cfg, params, pj, api.absorb(params, cfg, pj)
 
 
 def time_ms(fn: Callable[[], Any], reps: int,
@@ -90,8 +118,8 @@ _ACTIVE: Optional["BenchRecorder"] = None
 
 
 class BenchRecorder:
-    """Collects one benchmark's CSV rows and gate verdicts for the
-    ``BENCH_<name>.json`` artifact."""
+    """Collects one benchmark's CSV rows, gate verdicts and metrics
+    snapshots for the ``BENCH_<name>.json`` artifact."""
 
     def __init__(self, name: str, device: torch.device):
         self.name = name
@@ -107,6 +135,11 @@ class BenchRecorder:
         self.gates.append({"name": name, "passed": bool(passed),
                            "detail": detail})
         assert passed, f"gate {name}: {detail}"
+
+    def add_metrics(self, registry, tag: str = "engine") -> None:
+        """Attach a ``repro_torch.obs`` MetricsRegistry snapshot under
+        ``tag``."""
+        self.extra.setdefault("metrics", {})[tag] = registry.snapshot()
 
     def payload(self, ok: bool) -> Dict[str, Any]:
         dev = (torch.cuda.get_device_name(self.device)
@@ -127,6 +160,13 @@ def gate(name: str, passed: bool, detail: str = "") -> None:
         _ACTIVE.gate(name, passed, detail)
     else:
         assert passed, f"gate {name}: {detail}"
+
+
+def record_metrics(registry, tag: str = "engine") -> None:
+    """Attach a metrics snapshot to the active recorder (no-op outside
+    ``bench_record``)."""
+    if _ACTIVE is not None:
+        _ACTIVE.add_metrics(registry, tag)
 
 
 @contextmanager

@@ -16,7 +16,11 @@ bucket (``--engine --warmup`` captures the engine's whole graph family
 before the first request, and ``--async-fetch`` overlaps the decode
 token copy with the next step's scheduling); ``--smoke --device cpu``
 runs the small configuration eagerly through the plain PyTorch path on
-the CPU.
+the CPU.  ``--metrics-out`` writes the final metrics (Prometheus text for
+``.prom``/``.txt``, JSON otherwise), ``--trace-out`` streams the engine's
+JSONL event trace, and ``--profile-steps N`` writes a ``torch.profiler``
+trace of the first N engine steps into ``--profile-dir``
+(``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from repro_torch.kernels import KERNELS
 from repro_torch.kernels.build import build_all
 from repro_torch.launch.io import make_batch
 from repro_torch.models.registry import get_model, swan_applicable
+from repro_torch.obs import EventTrace
 from repro_torch.runtime.serve_engine import Request, ServeEngine
 from repro_torch.runtime.serve_loop import ServeSession, calibrate_swan
 
@@ -41,6 +46,8 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv=None):
+    """Parse ``argv`` and serve; returns the ``ServeEngine`` (``--engine``)
+    or ``ServeSession`` that served."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -99,6 +106,19 @@ def main(argv=None):
                     help="engine: overlap host scheduling with the decode "
                          "token copy (pinned, non-blocking, resolved at the "
                          "next step; token-identical)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the final metrics snapshot here: "
+                         "Prometheus text if the path ends in .prom/.txt, "
+                         "JSON otherwise (repro_torch.obs.metrics)")
+    ap.add_argument("--trace-out", default=None,
+                    help="engine: stream a structured JSONL event trace "
+                         "(admissions, dispatches, first tokens, page "
+                         "map/free, ...) to this path (repro_torch.obs.trace)")
+    ap.add_argument("--profile-steps", type=int, default=None,
+                    help="engine: write one torch.profiler trace spanning "
+                         "this many engine steps into --profile-dir")
+    ap.add_argument("--profile-dir", default="profile",
+                    help="engine: torch.profiler trace output directory")
     args = ap.parse_args(argv)
     if (args.warmup or args.async_fetch) and not args.engine:
         raise SystemExit("--warmup/--async-fetch require --engine")
@@ -112,6 +132,8 @@ def main(argv=None):
         raise SystemExit("--paged requires --engine and --swan")
     if args.pool_grow and not args.paged:
         raise SystemExit("--pool-grow requires --paged")
+    if (args.trace_out or args.profile_steps) and not args.engine:
+        raise SystemExit("--trace-out/--profile-steps require --engine")
 
     device = resolve_device(args.device)
     graphs = device.type == "cuda"
@@ -141,12 +163,13 @@ def main(argv=None):
               f"mode={swan.mode} int8={swan.quantize}")
 
     if args.engine:
-        _run_engine(cfg, params, swan, projections, args, device, graphs)
-        return
+        return _run_engine(cfg, params, swan, projections, args, device,
+                           graphs)
 
     sess = ServeSession(cfg, params, swan=swan, projections=projections,
                         max_seq=args.max_seq, batch=args.batch,
-                        graphs=graphs, device=device)
+                        graphs=graphs, device=device,
+                        metrics=bool(args.metrics_out))
     prompt = make_batch(cfg, args.batch, args.prompt_len, seed=11,
                         device=device)
     _sync(device)
@@ -163,10 +186,27 @@ def main(argv=None):
     rep = sess.cache_report()
     extra = f" ({rep['saving']:.0%} vs dense)" if "saving" in rep else ""
     print(f"cache [{rep['mode']}]: {rep['bytes'] / 1e6:.2f} MB{extra}")
+    _write_metrics(sess.metrics, args.metrics_out)
+    return sess
+
+
+def _write_metrics(registry, path) -> None:
+    """Dump a registry snapshot: Prometheus text for .prom/.txt paths,
+    JSON otherwise.  No-op when path is None."""
+    if not path:
+        return
+    if path.endswith((".prom", ".txt")):
+        body = registry.to_prometheus()
+    else:
+        body = registry.to_json(indent=2)
+    with open(path, "w") as fh:
+        fh.write(body)
+    print(f"metrics -> {path}")
 
 
 def _run_engine(cfg, params, swan, projections, args, device,
-                graphs: bool) -> None:
+                graphs: bool) -> ServeEngine:
+    trace = EventTrace(args.trace_out, keep=False) if args.trace_out else None
     eng = ServeEngine(cfg, params, swan=swan, projections=projections,
                       max_seq=args.max_seq, n_slots=args.batch,
                       paged=args.paged, page_size=args.page_size,
@@ -175,12 +215,14 @@ def _run_engine(cfg, params, swan, projections, args, device,
                       prefill_budget=args.prefill_budget,
                       pool_grow=args.pool_grow, admission=args.admission,
                       graphs=graphs, async_fetch=args.async_fetch,
-                      device=device)
+                      trace=trace, device=device)
     if args.warmup:
         rep = eng.warmup(max_prompt_len=args.max_prompt_len)
         print(f"warmup: {rep['census']['total']} graphs, {rep['captures']} "
               f"captures in {rep['warmup_ms']:.0f} ms "
               f"({ {k: v['captures'] for k, v in rep['by_kind'].items()} })")
+    if args.profile_steps:
+        eng.profile_steps(args.profile_steps, args.profile_dir)
     n_req = args.requests or args.batch * 2
     k_cycle = ([None] if (swan is None or not args.mixed_k)
                else [swan.k_max, max(swan.k_max // 2, 1),
@@ -218,6 +260,17 @@ def _run_engine(cfg, params, swan, projections, args, device,
               f"live now {rep['live_pages']} pages / "
               f"{rep['live_bytes'] / 1e6:.2f} MB "
               f"(slab layout would hold {rep['slab_bytes'] / 1e6:.2f} MB)")
+    ttft = eng.metrics.get("serve_ttft_steps")
+    if ttft is not None and ttft.count:
+        print(f"ttft: p50 ~{ttft.quantile(0.5):.0f} steps, "
+              f"p99 ~{ttft.quantile(0.99):.0f} steps (bucket-resolution)")
+    if eng._profiler is not None and eng._profiler.path:
+        print(f"profile -> {eng._profiler.path}")
+    _write_metrics(eng.metrics, args.metrics_out)
+    if trace is not None:
+        trace.close()
+        print(f"trace -> {args.trace_out}")
+    return eng
 
 
 if __name__ == "__main__":

@@ -24,8 +24,10 @@ before the next dispatch.
 
 A bucket not yet captured is captured at its first dispatch, as
 ``jax.jit`` compiles at first call, and counts in ``lazy_captures``
-unless a warmup is capturing (``warming``).  A
-failed capture raises; nothing falls back to eager.  Kernel launches
+unless a warmup is capturing (``warming``); every capture also counts
+in ``repro_torch.obs.compile_events`` (the engine's
+``serve_compile_total``).  A failed capture raises; nothing falls back to
+eager.  Kernel launches
 recorded during a capture (``CudaKernel.captured``) become the graph's
 tally, added to each kernel's ``launches`` at every replay.
 """
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import KERNELS
+from repro_torch.obs import compile_events
 
 
 @dataclass
@@ -112,6 +115,7 @@ class GraphSet:
         inputs = [_as_tensor(x).to(self.device).clone() for x in dead_inputs]
         self._graphs[(family, key)] = self._record(fn, inputs)
         self.captures[family] += 1
+        compile_events.record()
         if lazy:
             self.lazy_captures[family] += 1
         self.capture_s += time.perf_counter() - t0

@@ -1,7 +1,6 @@
 """Host-side page allocator for the paged sparse KV cache.
 
-Port of ``repro.runtime.page_pool`` (plain numpy; the observability hooks
-are left out).  The device keeps one shared pool of fixed-size pages per
+Port of ``repro.runtime.page_pool`` (plain numpy).  The device keeps one shared pool of fixed-size pages per
 layer (``repro_torch.core.paged_cache``); this module owns the mapping:
 which physical page backs which (slot, logical page).  The page table is
 shipped to the device as a small ``[n_slots, pages_per_seq]`` int32 operand.
@@ -30,11 +29,13 @@ Invariants (``check_consistent``):
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List, Optional
 
 import numpy as np
 
 from repro_torch.core.paged_cache import TRASH_PAGE
+from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
+from repro_torch.obs.trace import EventTrace
 
 
 class PagePoolExhausted(RuntimeError):
@@ -79,6 +80,33 @@ class PagePool:
         # bumped on every table mutation: the engine re-uploads the device
         # table only when the mapping changed
         self.version = 0
+        # observability sink (bind_obs): page map/free/exhaustion events
+        # and counters, emitted on the host
+        self._metrics: MetricsRegistry = NULL_REGISTRY
+        self._trace: Optional[EventTrace] = None
+        self._step: Callable[[], int] = lambda: 0
+
+    def bind_obs(self, metrics: Optional[MetricsRegistry] = None,
+                 trace: Optional[EventTrace] = None,
+                 step_fn: Optional[Callable[[], int]] = None) -> None:
+        """Attach an observability sink: ``metrics`` receives
+        ``page_pool_*`` counters, ``trace`` receives ``page_map`` /
+        ``page_free`` / ``pool_exhausted`` events stamped with the engine
+        step from ``step_fn``.  Allocator behaviour is identical bound or
+        unbound."""
+        self._metrics = metrics if metrics is not None else NULL_REGISTRY
+        self._trace = trace
+        if step_fn is not None:
+            self._step = step_fn
+
+    def _exhausted(self, msg: str, slot: int) -> PagePoolExhausted:
+        self._metrics.counter(
+            "page_pool_exhausted_total",
+            "allocation attempts that found no eligible free page").inc()
+        if self._trace is not None:
+            self._trace.emit("pool_exhausted", step=self._step(), slot=slot,
+                             shard=self.shard_of(slot), detail=msg)
+        return PagePoolExhausted(msg)
 
     def shard_of(self, slot: int) -> int:
         return slot // self.slots_per_shard
@@ -106,9 +134,9 @@ class PagePool:
         shard's free pages first."""
         free = self.shard_free_pages(self.shard_of(slot))
         if n_pages > free:
-            raise PagePoolExhausted(
+            raise self._exhausted(
                 f"cannot hold {n_pages} pages for slot {slot}: only {free} "
-                "unheld pages free on its shard")
+                "unheld pages free on its shard", slot)
         self._held[slot] += n_pages
 
     def _shard_held(self, shard: int) -> int:
@@ -120,21 +148,28 @@ class PagePool:
         if self._held[slot] > 0:
             self._held[slot] -= 1          # consume the slot's own hold
         elif len(self._free[sh]) - self._shard_held(sh) <= 0:
-            raise PagePoolExhausted(
+            raise self._exhausted(
                 f"page pool exhausted: {len(self._free[sh])} free pages on "
                 f"shard {sh} all held for in-flight prefills (slot {slot} "
-                "needs one more)")
+                "needs one more)", slot)
         if not self._free[sh]:
-            raise PagePoolExhausted(
+            raise self._exhausted(
                 f"page pool exhausted: {self.pages_per_shard - 1} usable "
-                f"pages on shard {sh}, all live (slot {slot} needs one more)")
+                f"pages on shard {sh}, all live (slot {slot} needs one more)",
+                slot)
         p = self._free[sh].pop()
         if self._owner[sh, p] != -1 or p == TRASH_PAGE:
             raise RuntimeError(f"page {p} on shard {sh} is not free")
         self._owner[sh, p] = slot
-        self.table[slot, int(self.n_mapped[slot])] = p
+        logical = int(self.n_mapped[slot])
+        self.table[slot, logical] = p
         self.n_mapped[slot] += 1
         self.version += 1
+        self._metrics.counter("page_pool_pages_mapped_total",
+                              "physical pages mapped to slots").inc()
+        if self._trace is not None:
+            self._trace.emit("page_map", step=self._step(), slot=slot,
+                             shard=sh, logical=logical, physical=int(p))
         return p
 
     def free_slot(self, slot: int) -> int:
@@ -151,6 +186,11 @@ class PagePool:
         self._held[slot] = 0
         if n:
             self.version += 1
+            self._metrics.counter("page_pool_pages_freed_total",
+                                  "pages returned on retirement").inc(n)
+        if self._trace is not None:
+            self._trace.emit("page_free", step=self._step(), slot=slot,
+                             shard=sh, n_pages=n)
         return n
 
     def grow(self, new_pages_per_shard: int) -> None:

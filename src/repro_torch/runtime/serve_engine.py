@@ -1,8 +1,7 @@
 """Continuous-batching serve engine: a slot scheduler over batched caches.
 
-Port of ``repro.runtime.serve_engine`` without a mesh (one shard), without
-metrics, trace or profiler hooks, and without AOT lowering
-(``lower_decode`` / ``lower_chunk``).
+Port of ``repro.runtime.serve_engine`` without a mesh (one shard) and
+without AOT lowering (``lower_decode`` / ``lower_chunk``).
 
   * a request queue (FIFO by default; ``admission="srf"`` picks the
     shortest remaining request first) feeds ``n_slots`` cache slots;
@@ -63,9 +62,28 @@ one single-slot transient shared by every prompt bucket, then inserts it.
 ``cache_report()`` reports ``reserved_bytes`` (allocated now), ``live_bytes``
 (addressable by live tokens; equal to reserved on the slab) and, paged,
 ``page_table_shipped_bytes`` (the table prefix a decode dispatch ships).
+
+Observability (``repro_torch.obs``, the reference's metric and event
+names): the engine carries a ``metrics`` registry (``metrics=False`` swaps
+in the no-op registry; a registry passed in is shared) and an optional
+``trace`` event sink.  Every instrument is updated on the host between
+dispatches from host state (Python ints, never a device tensor read
+back), so metrics on vs off gives identical tokens, dispatches and
+graphs.  Each dispatch records its host-side submit time (the operands'
+``copy_`` and the replay, or a capture at first use; no device sync) in
+``serve_dispatch_ms`` and its graph captures in
+``serve_compile_total{phase="serve"}``; ``profile_steps`` brackets N
+engine steps with ``torch.profiler``.  Two names differ from the
+reference's (``RENAMED_FROM_REFERENCE``): the ``kernel`` label reads
+``cuda`` where the hand-written kernels back a dispatch and ``torch``
+for the plain path, and ``serve_pallas_dispatch_total`` is
+``serve_kernel_dispatch_total``.  The port also times the monolithic
+admission's prefill and insert dispatches, which the reference leaves
+untimed.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -76,13 +94,30 @@ import torch
 from repro_torch.core import hybrid_cache as hc
 from repro_torch.core import paged_cache as pc
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.dispatch import kernel_supported
 from repro_torch.models.registry import get_model, swan_applicable
+from repro_torch.obs import compile_events
+from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
+from repro_torch.obs.trace import EventTrace, StepProfiler
 from repro_torch.runtime.graphs import GraphSet
 from repro_torch.runtime.page_pool import PagePool, PagePoolExhausted
 from repro_torch.runtime.sampling import sample_token
 from repro_torch.runtime.serve_loop import serve_cache_report
 
 Params = Dict[str, Any]
+
+# fixed histogram buckets, in ENGINE STEPS (the reference's values)
+TTFT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+GAP_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+REQ_STEP_BUCKETS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+# host-side dispatch submit latency in ms, measured without a device sync
+DISPATCH_MS_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0,
+                       50.0, 100.0, 250.0, 1000.0, 4000.0)
+# the port's names for the reference's metric family and ``kernel`` label
+# values that name its kernels (Pallas) and its plain path (XLA)
+RENAMED_FROM_REFERENCE = {
+    "serve_pallas_dispatch_total": "serve_kernel_dispatch_total",
+    "pallas": "cuda", "xla": "torch"}
 
 
 @dataclass
@@ -122,6 +157,8 @@ class _Slot:
     state: str = "decoding"
     n_prefilled: int = 0
     first_token_step: int = -1
+    # engine step of the latest sampled token (inter-token gap accounting)
+    last_token_step: int = -1
 
 
 @dataclass
@@ -152,7 +189,8 @@ class ServeEngine:
     ``device`` (the card unless ``device="cpu"``); ``params`` and
     ``projections`` must live there.  ``graphs`` (None: on for a CUDA
     device) dispatches through CUDA graphs; ``graphs=True`` without a
-    card raises."""
+    card raises.  ``metrics``: True (a fresh registry), False (the no-op
+    registry) or a registry to share; ``trace``: an event sink or None."""
 
     def __init__(self, cfg, params, swan=None, projections=None,
                  max_seq: int = 4096, n_slots: int = 4, paged: bool = False,
@@ -162,11 +200,19 @@ class ServeEngine:
                  prefill_budget: Optional[int] = None,
                  pool_grow: bool = False, admission: str = "fifo",
                  graphs: Optional[bool] = None, async_fetch: bool = False,
+                 metrics=True, trace: Optional[EventTrace] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if graphs is None:
             graphs = self.device.type == "cuda"
         self._graphs = GraphSet(self.device) if graphs else None
+        compile_events.install()
+        if isinstance(metrics, MetricsRegistry):
+            self.metrics = metrics
+        else:
+            self.metrics = MetricsRegistry() if metrics else NULL_REGISTRY
+        self.trace = trace
+        self._profiler: Optional[StepProfiler] = None
         self.cfg = cfg
         self.api = get_model(cfg)
         self.swan = (swan if (swan and swan.enabled and swan_applicable(cfg))
@@ -186,6 +232,10 @@ class ServeEngine:
         self.pool_grow = pool_grow
         self._bucketing = bucket_prompts
         self._k_fill = 0 if self.swan is None else self.swan.k_max
+        # whether the hand-written kernels back the decode and chunk reads
+        # (kernels.dispatch's gate, asked for a cache on this device)
+        self.use_kernels = kernel_supported(
+            self.swan, torch.empty((0, 0, 1, 0), device=self.device))
 
         self.prefill_chunk = prefill_chunk
         if prefill_chunk is not None:
@@ -224,12 +274,16 @@ class ServeEngine:
             if n_pages is None:
                 n_pages = -(-(n_slots * max_pages + 1) // 8) * 8
             self.pool = PagePool(n_pages, max_pages, n_slots, page_size)
+            self.pool.bind_obs(self.metrics, trace,
+                               step_fn=lambda: self.step_count)
             self.state = self.api.init_paged_state(
                 cfg, self.swan, n_slots, max_seq, n_pages, page_size,
                 self.device)
         else:
             self.state = self.api.init_serve_state(cfg, self.swan, n_slots,
                                                    max_seq, self.device)
+        # the slab never reallocates: its bytes are checked once here
+        self._slab_bytes = None if paged else self._slab_check()
 
         self.queue: deque = deque()
         self.slots: List[Optional[_Slot]] = [None] * n_slots
@@ -272,6 +326,13 @@ class ServeEngine:
                 raise ValueError(f"request {req.uid}: k={req.k} > allocated "
                                  f"k_max={self.swan.k_max}")
         self.queue.append(req)
+        self.metrics.counter("serve_requests_submitted_total",
+                             "requests accepted into the queue").inc()
+        if self.trace is not None:
+            self.trace.emit("submit", step=self.step_count, uid=req.uid,
+                            prompt_len=len(req.tokens),
+                            max_new_tokens=req.max_new_tokens, k=req.k,
+                            arrival_step=req.arrival_step)
 
     @property
     def n_active(self) -> int:
@@ -360,9 +421,41 @@ class ServeEngine:
 
     def _dispatch(self, family: str, key, fn: Callable, inputs: Sequence,
                   dead_inputs: Callable[[], Sequence]):
+        """Run one dispatch of ``family`` (eagerly, or by graph replay) and,
+        unless a warmup is capturing, record it (``_obs_dispatch``)."""
+        warming = self._graphs is not None and self._graphs.warming
+        c0 = compile_events.total()
+        t0 = time.perf_counter()
         if self._graphs is None:
-            return fn(*[self._to_device(x) for x in inputs])
-        return self._graphs.run(family, key, fn, inputs, dead_inputs)
+            out = fn(*[self._to_device(x) for x in inputs])
+        else:
+            out = self._graphs.run(family, key, fn, inputs, dead_inputs)
+        if not warming:
+            self._obs_dispatch(family, time.perf_counter() - t0,
+                               compile_events.total() - c0)
+        return out
+
+    def _obs_dispatch(self, kind: str, dt: float, compiles: int = 0) -> None:
+        """Record one dispatch: which implementation backed its SWAN read
+        (``cuda`` kernels or the ``torch`` plain path), its host-side submit
+        time ``dt`` in seconds (no device sync), and the graphs captured
+        for it (``compiles``, the ``compile_events.total()`` delta: 0 once
+        its bucket exists)."""
+        kernel = ("cuda" if self.use_kernels and kind in ("decode", "chunk")
+                  else "torch")
+        if kernel == "cuda":
+            self.metrics.counter(
+                "serve_kernel_dispatch_total",
+                "hot-path dispatches backed by the CUDA kernels",
+                kind=kind).inc()
+        self.metrics.histogram(
+            "serve_dispatch_ms", DISPATCH_MS_BUCKETS,
+            "host-side dispatch submit latency (no device sync)",
+            kind=kind, kernel=kernel).observe(dt * 1e3)
+        if compiles:
+            self.metrics.counter("serve_compile_total",
+                                 compile_events.METRIC_HELP,
+                                 phase="serve", kind=kind).inc(compiles)
 
     def _decode_call(self, tok, pos, k, width: Optional[int]):
         """Decode dispatch -> (logits [n_slots, V], greedy ids [n_slots]);
@@ -566,7 +659,12 @@ class ServeEngine:
         pending, self._pending = self._pending, None
         if pending is None:
             return
+        t0 = time.perf_counter()
         toks = self._resolve_tokens(pending)
+        self.metrics.histogram(
+            "serve_token_fetch_ms", DISPATCH_MS_BUCKETS,
+            "host block on the decode token transfer",
+            mode="async").observe((time.perf_counter() - t0) * 1e3)
         step_now = self.step_count
         self.step_count = pending.step
         try:
@@ -576,11 +674,26 @@ class ServeEngine:
 
     def _apply_decode_tokens(self, lanes, toks) -> None:
         """One decode step's tokens into the scheduler: advance positions,
-        extend transcripts, feed ``next_tok``, retire finished slots."""
+        extend transcripts, feed ``next_tok``, count and trace each token,
+        retire finished slots."""
+        gap_hist = self.metrics.histogram(
+            "serve_inter_token_steps", GAP_BUCKETS,
+            "engine steps between consecutive tokens of one request")
+        tok_ctr = self.metrics.counter(
+            "serve_tokens_generated_total",
+            "sampled tokens (first tokens included)")
         for i, tok in zip(lanes, toks):
+            s = self.slots[i]
             self.slot_pos[i] += 1
-            self.slots[i].generated.append(tok)
+            s.generated.append(tok)
             self.next_tok[i] = tok
+            gap_hist.observe(self.step_count - s.last_token_step)
+            s.last_token_step = self.step_count
+            tok_ctr.inc()
+            if self.trace is not None:
+                self.trace.emit("token", step=self.step_count,
+                                uid=s.req.uid, slot=i,
+                                index=len(s.generated) - 1, token=tok)
             self._maybe_retire(i)
 
     def _bucket_len(self, plen: int) -> int:
@@ -611,13 +724,38 @@ class ServeEngine:
         return self.n_slots * self._decode_bucket() * 4
 
     def _record_first_token(self, slot: int, tok: int) -> None:
+        """A slot's first sampled token: its transcript, and TTFT in steps
+        from the request's arrival."""
         s = self.slots[slot]
         s.generated.append(tok)
-        s.first_token_step = self.step_count
+        s.first_token_step = s.last_token_step = self.step_count
         self.next_tok[slot] = tok
+        ttft = self.step_count - s.req.arrival_step
+        self.metrics.histogram(
+            "serve_ttft_steps", TTFT_BUCKETS,
+            "engine steps from request arrival to first token").observe(ttft)
+        self.metrics.counter("serve_tokens_generated_total",
+                             "sampled tokens (first tokens included)").inc()
+        if self.trace is not None:
+            self.trace.emit("prefill_complete", step=self.step_count,
+                            uid=s.req.uid, slot=slot,
+                            prompt_len=len(s.req.tokens))
+            self.trace.emit("first_token", step=self.step_count,
+                            uid=s.req.uid, slot=slot, token=tok,
+                            ttft_steps=ttft)
+            self.trace.emit("token", step=self.step_count, uid=s.req.uid,
+                            slot=slot, index=0, token=tok)
 
     def _admit(self, req: Request, slot: int) -> None:
         k_req = self.swan.k_max if (self.swan and req.k is None) else (req.k or 0)
+        mode = "chunked" if self.prefill_chunk is not None else "monolithic"
+        self.metrics.counter("serve_admissions_total",
+                             "requests admitted into a slot",
+                             mode=mode).inc()
+        if self.trace is not None:
+            self.trace.emit("admit", step=self.step_count, uid=req.uid,
+                            slot=slot, shard=0, prompt_len=len(req.tokens),
+                            k=req.k, mode=mode)
         if self.prefill_chunk is not None:
             # chunked admission claims the slot; chunks land as the
             # round-robin reaches it.  Paged: the prompt's whole winnow need
@@ -641,6 +779,10 @@ class ServeEngine:
         logits = self._prefill_call(toks, np.asarray(k_req, np.int32),
                                     np.asarray(plen, np.int32))
         self.dispatches["prefill"] += 1
+        self.metrics.counter("serve_dispatches_total", "dispatches by kind",
+                             kind="prefill").inc()
+        self.metrics.counter("serve_prefill_tokens_total",
+                             "prompt tokens prefilled").inc(plen)
         # sampled before the insert dispatch, which may reuse the graph
         # pool memory that holds these logits
         first = self._sample(logits[0], req, 0)
@@ -664,6 +806,22 @@ class ServeEngine:
                 or self.slot_pos[slot] >= self.max_seq)
         if not done:
             return
+        reason = ("eos" if s.req.eos is not None
+                  and s.generated[-1] == s.req.eos
+                  else "max_tokens" if len(s.generated) >= s.req.max_new_tokens
+                  else "max_seq")
+        self.metrics.counter("serve_completions_total",
+                             "retired requests by reason",
+                             reason=reason).inc()
+        self.metrics.histogram(
+            "serve_request_steps", REQ_STEP_BUCKETS,
+            "engine steps from admission to retirement").observe(
+                self.step_count - s.admitted_step)
+        if self.trace is not None:
+            self.trace.emit("retire", step=self.step_count, uid=s.req.uid,
+                            slot=slot, shard=0, n_tokens=len(s.generated),
+                            reason=reason, admitted_step=s.admitted_step,
+                            first_token_step=s.first_token_step)
         self.completions.append(Completion(
             uid=s.req.uid, tokens=list(s.generated),
             prompt_len=len(s.req.tokens), k=s.req.k,
@@ -713,7 +871,15 @@ class ServeEngine:
                 if need > self.pool.shard_free_pages(0) and self.pool_grow:
                     self._grow_pool(self.pool.pages_per_shard + max(need, 1))
                 if need > self.pool.shard_free_pages(0):
-                    return                  # held admission
+                    # held admission: counted per engine step spent waiting
+                    self.metrics.counter(
+                        "serve_admission_holds_total",
+                        "steps an arrived request waited on pool pages").inc()
+                    if self.trace is not None:
+                        self.trace.emit("admission_hold",
+                                        step=self.step_count, uid=nxt.uid,
+                                        need_pages=need)
+                    return
             slot = free[0]
             self.queue.remove(nxt)
             self._admit(nxt, slot)
@@ -751,7 +917,13 @@ class ServeEngine:
                 pad = torch.zeros((x.shape[0], extra, *x.shape[2:]),
                                   dtype=hc._bits(x).dtype, device=x.device)
                 side[name] = torch.cat([hc._bits(x), pad], dim=1).view(x.dtype)
+        old = self.pool.pages_per_shard
         self.pool.grow(new)
+        self.metrics.counter("page_pool_grows_total",
+                             "device pool growth events").inc()
+        if self.trace is not None:
+            self.trace.emit("pool_grow", step=self.step_count,
+                            pages_per_shard_old=old, pages_per_shard_new=new)
         if self._graphs is not None:
             # the graphs point into the old pool: capture them anew, all
             # at once on a warmed engine (as the reference re-warms)
@@ -844,6 +1016,14 @@ class ServeEngine:
         logits, greedy = self._chunk_call(toks, slot_v, start_v, tlen_v, k_v,
                                           width, prefix)
         self.dispatches["chunk"] += 1
+        n_tok = sum(lens.values())
+        self.metrics.counter("serve_dispatches_total", "dispatches by kind",
+                             kind="chunk").inc()
+        self.metrics.counter("serve_prefill_tokens_total",
+                             "prompt tokens prefilled").inc(n_tok)
+        if self.trace is not None:
+            self.trace.emit("chunk_dispatch", step=self.step_count,
+                            lanes=len(sel), slots=sel, tokens=n_tok)
         fins = []
         for lane, i in enumerate(sel):
             s = self.slots[i]
@@ -868,6 +1048,8 @@ class ServeEngine:
         Returns the number of sequences that finished during this call;
         with ``async_fetch`` a dispatch's completions surface one call
         later, with the same step stamps."""
+        if self._profiler is not None:
+            self._profiler.step_start(self.step_count)
         n_done0 = len(self.completions)
         self._resolve_pending()
         self._admit_pending()
@@ -887,6 +1069,11 @@ class ServeEngine:
             logits, greedy = self._decode_call(self.next_tok, self.slot_pos,
                                                self.slot_k, width)
             self.dispatches["decode"] += 1
+            self.metrics.counter("serve_dispatches_total",
+                                 "dispatches by kind", kind="decode").inc()
+            if self.trace is not None:
+                self.trace.emit("decode_dispatch", step=self.step_count,
+                                lanes=len(active))
             picks = [(i, self.slots[i].req, len(self.slots[i].generated))
                      for i in active]
             if self.async_fetch:
@@ -894,11 +1081,25 @@ class ServeEngine:
                     "decode", logits, greedy, picks, self.step_count,
                     lanes=active)
             else:
-                self._apply_decode_tokens(
-                    active, self._lane_tokens("decode", logits, greedy,
-                                              picks))
+                t0 = time.perf_counter()
+                toks = self._lane_tokens("decode", logits, greedy, picks)
+                self.metrics.histogram(
+                    "serve_token_fetch_ms", DISPATCH_MS_BUCKETS,
+                    "host block on the decode token transfer",
+                    mode="sync").observe((time.perf_counter() - t0) * 1e3)
+                self._apply_decode_tokens(active, toks)
         self.step_count += 1
+        self._sample_gauges()
+        if self._profiler is not None:
+            self._profiler.step_end(self.step_count)
         return len(self.completions) - n_done0
+
+    def profile_steps(self, n_steps: int, logdir: str) -> None:
+        """Profile the next ``n_steps`` engine steps (admission, chunk and
+        decode dispatch included) with ``torch.profiler``, the card's
+        activity too on a CUDA device; the trace lands in ``logdir``."""
+        self._profiler = StepProfiler(logdir, n_steps, trace=self.trace,
+                                      cuda=self.device.type == "cuda")
 
     def run(self, requests: Optional[Sequence[Request]] = None,
             max_steps: Optional[int] = None) -> List[Completion]:
@@ -917,27 +1118,31 @@ class ServeEngine:
     # Accounting
     # ------------------------------------------------------------------
 
-    def _cache_bytes(self) -> Dict[str, Any]:
-        """The one source of cache byte accounting: ``reserved_bytes`` /
-        ``live_bytes`` (+ ``page_table_shipped_bytes`` paged), with a
-        one-entry ``shards`` breakdown (the reference's single-device
-        layout)."""
+    def _slab_check(self) -> int:
+        """The slab's reserved bytes (the analytic layout), checked against
+        the bytes of the resident state: the slab commits the worst case
+        at init, so they must be equal."""
         L = self.cfg.n_layers
+        if self.swan is None:
+            reserved = L * hc.dense_cache_bytes(self.cfg, self.n_slots,
+                                                self.max_seq)
+        else:
+            reserved = L * (hc.cache_bytes(self.cfg, self.swan, self.n_slots,
+                                           self.max_seq)
+                            + self.n_slots * self.swan.buffer * 4)
+        live = sum(x.numel() * x.element_size() for x in _leaves(self.state))
+        if reserved != live:
+            raise RuntimeError(f"slab reserved {reserved} != resident {live}")
+        return reserved
+
+    def _cache_bytes(self) -> Dict[str, Any]:
+        """The one source of cache byte accounting, read by
+        ``cache_report()`` and the per-step ``kv_cache_*`` gauges:
+        ``reserved_bytes`` / ``live_bytes`` (+ ``page_table_shipped_bytes``
+        paged), with a one-entry ``shards`` breakdown (the reference's
+        single-device layout).  Host arithmetic only."""
         if not self.paged:
-            # the slab commits the worst case at init: the resident state
-            # must equal the analytic layout
-            live = sum(x.numel() * x.element_size()
-                       for x in _leaves(self.state))
-            if self.swan is None:
-                reserved = L * hc.dense_cache_bytes(self.cfg, self.n_slots,
-                                                    self.max_seq)
-            else:
-                reserved = L * (hc.cache_bytes(self.cfg, self.swan,
-                                               self.n_slots, self.max_seq)
-                                + self.n_slots * self.swan.buffer * 4)
-            if reserved != live:
-                raise RuntimeError(f"slab reserved {reserved} != resident "
-                                   f"{live}")
+            reserved = self._slab_bytes
             return {"reserved_bytes": reserved, "live_bytes": reserved,
                     "shards": [{"reserved_bytes": reserved,
                                 "live_bytes": reserved}]}
@@ -959,6 +1164,8 @@ class ServeEngine:
         and the shipped table prefix."""
         rep = serve_cache_report(self.cfg, self.swan, self.n_slots,
                                  self.max_seq)
+        if not self.paged:
+            self._slab_check()
         acct = self._cache_bytes()
         rep["reserved_bytes"] = acct["reserved_bytes"]
         rep["live_bytes"] = acct["live_bytes"]
@@ -981,6 +1188,59 @@ class ServeEngine:
                    live_pages=self.pool.live_pages)
         rep["page_table_shipped_bytes"] = acct["page_table_shipped_bytes"]
         return rep
+
+    def _sample_gauges(self) -> None:
+        """End-of-step gauges, the reference's with its one shard (shard
+        0).  Skipped under the null registry, so ``metrics=False`` pays
+        nothing per step."""
+        m = self.metrics
+        if not m.enabled:
+            return
+        m.gauge("serve_engine_steps",
+                "scheduler steps taken").set(self.step_count)
+        m.gauge("serve_queue_depth",
+                "arrived requests waiting for a slot").set(self.pending)
+        m.gauge("serve_lanes_active",
+                "slots holding a live request").set(self.n_active)
+        acct = self._cache_bytes()
+        m.gauge("kv_cache_reserved_bytes",
+                "cache bytes physically allocated").set(
+                    acct["reserved_bytes"])
+        m.gauge("kv_cache_live_bytes",
+                "cache bytes addressable by live tokens").set(
+                    acct["live_bytes"])
+        if self.paged:
+            m.gauge("page_table_shipped_bytes",
+                    "bytes of the shipped [n_slots, bucket] int32 "
+                    "page-table prefix").set(
+                        acct["page_table_shipped_bytes"])
+            m.gauge("page_pool_live_pages",
+                    "pages mapped to live sequences").set(
+                        self.pool.live_pages)
+            m.gauge("page_pool_free_pages",
+                    "pages on the free lists").set(self.pool.free_pages)
+        m.gauge("shard_lanes_active",
+                "decoding lanes on this shard", shard=0).set(
+                    sum(1 for s in self.slots
+                        if s is not None and s.state == "decoding"))
+        m.gauge("shard_lanes_prefilling",
+                "prefilling lanes on this shard", shard=0).set(
+                    sum(1 for s in self.slots
+                        if s is not None and s.state == "prefilling"))
+        e = acct["shards"][0]
+        m.gauge("shard_kv_cache_reserved_bytes",
+                "cache bytes physically allocated on this shard",
+                shard=0).set(e["reserved_bytes"])
+        m.gauge("shard_kv_cache_live_bytes",
+                "live cache bytes on this shard", shard=0).set(
+                    e["live_bytes"])
+        if self.paged:
+            m.gauge("shard_page_pool_live_pages",
+                    "live pages on this shard", shard=0).set(
+                        self.pool.shard_live_pages(0))
+            m.gauge("shard_page_pool_free_pages",
+                    "free pages on this shard", shard=0).set(
+                        self.pool.shard_free_pages(0))
 
 
 def _leaves(tree) -> List[torch.Tensor]:

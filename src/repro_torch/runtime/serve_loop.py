@@ -1,16 +1,19 @@
 """Lockstep serving: SWAN calibration and a batched generation session.
 
-Port of ``repro.runtime.serve_loop`` (without metrics).  The session's
+Port of ``repro.runtime.serve_loop``.  The session's
 caches live on its device and prefill/decode update them in place.  On the
 card every layer's SWAN decode read goes through the CUDA kernel
 (``repro_torch.kernels.swan_decode``), and with ``graphs`` (on by default
 there) each decode step is one CUDA-graph replay, with the token and
 ``pos`` as static device operands, and each prompt shape's prefill one
 graph, as ``jax.jit`` compiles the reference's per shape
-(``runtime.graphs``).
+(``runtime.graphs``).  ``metrics`` counts prefill and decode calls and
+times each call on the host (the enqueue, or a capture at first use; no
+device sync), as the reference times its jitted calls.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -20,8 +23,14 @@ from repro_torch.core import projections as proj_mod
 from repro_torch.core.analytical import model_cache_footprint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import get_model, swan_applicable
+from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
 from repro_torch.runtime.graphs import GraphSet
 from repro_torch.runtime.sampling import sample_token
+
+# wall-clock step-call buckets (ms), the reference's: they time the host
+# call around a step, so a capture at first use shows in the top buckets
+STEP_MS_BUCKETS = (0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0,
+                   128.0, 256.0, 512.0, 1024.0)
 
 Params = Dict[str, Any]
 
@@ -56,11 +65,18 @@ class ServeSession:
     ``device`` None means the card: constructing a session without a card
     and without ``device="cpu"`` raises.  ``params`` must already live on
     that device.  ``graphs`` (None: on for a CUDA device) replays prefill
-    and decode as CUDA graphs; ``graphs=True`` without a card raises."""
+    and decode as CUDA graphs; ``graphs=True`` without a card raises.
+    ``metrics``: False (the default, the no-op registry), True (a fresh
+    registry) or a registry to share."""
 
     def __init__(self, cfg, params, swan=None, projections=None,
                  max_seq: int = 4096, batch: int = 1,
-                 graphs: Optional[bool] = None, device: DeviceLike = None):
+                 graphs: Optional[bool] = None, device: DeviceLike = None,
+                 metrics=False):
+        if isinstance(metrics, MetricsRegistry):
+            self.metrics = metrics
+        else:
+            self.metrics = MetricsRegistry() if metrics else NULL_REGISTRY
         self.device = resolve_device(device)
         if graphs is None:
             graphs = self.device.type == "cuda"
@@ -83,6 +99,7 @@ class ServeSession:
         self.pos = 0
 
     def prefill(self, batch_in: Params) -> torch.Tensor:
+        t0 = time.perf_counter()
         tokens = batch_in["tokens"]
         if tokens.shape[1] > self.max_seq:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds "
@@ -101,6 +118,11 @@ class ServeSession:
             logits = self._graphs.run(
                 "prefill", tuple(tokens.shape), fn, [tokens],
                 lambda: [torch.zeros_like(tokens)]).clone()
+        self.metrics.counter("session_prefill_total", "prefill calls").inc()
+        self.metrics.histogram(
+            "session_prefill_call_ms", STEP_MS_BUCKETS,
+            "host wall-clock of the prefill call (captures show as "
+            "outliers)").observe((time.perf_counter() - t0) * 1e3)
         self.pos = tokens.shape[1]
         return logits
 
@@ -108,6 +130,7 @@ class ServeSession:
         if self.pos >= self.max_seq:
             raise ValueError(f"position {self.pos} is past max_seq="
                              f"{self.max_seq}")
+        t0 = time.perf_counter()
         if self._graphs is None:
             logits, self.state = self.api.decode_step(
                 self.params, self.cfg, token, self.pos, self.state, self.swan,
@@ -124,6 +147,12 @@ class ServeSession:
                 "decode", B, fn, [token, np.full((B,), self.pos, np.int32)],
                 lambda: [torch.zeros_like(token),
                          np.full((B,), -1, np.int32)]).clone()
+        self.metrics.counter("session_decode_total",
+                             "decode step calls").inc()
+        self.metrics.histogram(
+            "session_decode_call_ms", STEP_MS_BUCKETS,
+            "host wall-clock of the decode call (captures show as "
+            "outliers)").observe((time.perf_counter() - t0) * 1e3)
         self.pos += 1
         return logits
 
@@ -133,9 +162,12 @@ class ServeSession:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         logits = self.prefill(batch_in)
         tok = sample_token(logits, temperature, gen)
+        tok_ctr = self.metrics.counter("session_tokens_generated_total",
+                                       "tokens sampled by generate()")
         outs = []
         for i in range(n_tokens):
             outs.append(tok)
+            tok_ctr.inc(self.batch)
             if i == n_tokens - 1:
                 break
             logits = self.decode(tok)

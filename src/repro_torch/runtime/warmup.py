@@ -1,8 +1,8 @@
 """Graph-family warmup for :class:`repro_torch.runtime.serve_engine.
 ServeEngine`.
 
-Port of ``repro.runtime.warmup`` without a mesh (dp = 1) and without the
-metrics and trace hooks.  Under real traffic the first dispatch of each
+Port of ``repro.runtime.warmup`` without a mesh (dp = 1).  Under real
+traffic the first dispatch of each
 (prompt-chunk x lane x slab-read-prefix / page-table-prefix) shape bucket
 pays a CUDA-graph capture in the middle of serving (a warm run and a
 capture of a whole model step).  Every bucket is enumerable from the
@@ -29,6 +29,11 @@ bucket, a sample item runs the host sampler once on a row of the logits'
 width and type.
 ``pool_grow`` is not warmed: growth runs eagerly, and ``_grow_pool``
 drops every graph and warms the family again.
+
+A warmup counts its captures (``repro_torch.obs.compile_events``) into
+the engine's ``serve_compile_total{phase="warmup", kind=...}``, sets the
+``serve_warmup_ms`` gauge and emits ``warmup_start``/``warmup_done``
+trace events, as the reference does with its XLA compiles.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import paged_cache as pc
+from repro_torch.obs import compile_events
 
 
 @dataclass(frozen=True)
@@ -198,8 +204,7 @@ def _warm_item(eng, item: WarmupItem, last: Dict[Any, Any]
                ) -> Optional[Dict[str, Any]]:
     """Warm one item; its report row (None for a fetch item whose source
     dispatch is not in the family)."""
-    graphs = eng._graphs
-    n0 = sum(graphs.captures.values())
+    c0 = compile_events.total()
     t0 = time.perf_counter()
     if item.kind == "fetch":
         src = last.get((item.src, item.n_lanes))
@@ -220,7 +225,7 @@ def _warm_item(eng, item: WarmupItem, last: Dict[Any, Any]
             lanes = item.n_lanes if item.kind == "chunk" else eng.n_slots
             last[(item.kind, lanes)] = out
     return {"kind": item.kind, "detail": item.detail,
-            "captures": sum(graphs.captures.values()) - n0,
+            "captures": compile_events.total() - c0,
             "ms": (time.perf_counter() - t0) * 1e3}
 
 
@@ -234,23 +239,33 @@ def warmup_engine(eng, max_prompt_len: Optional[int] = None
          "expected": <family expectation>, "census": <executable_census>,
          "skipped": [...], "note": ...}
 
-    Safe to call mid-serve (pool growth does): the dead-lane operands
-    leave live sequences untouched."""
+    and records ``serve_warmup_ms`` / ``serve_compile_total{phase=
+    "warmup"}`` in the engine's metrics plus ``warmup_start`` /
+    ``warmup_done`` trace events.  Safe to call mid-serve (pool growth
+    does): the dead-lane operands leave live sequences untouched."""
     if eng._graphs is None:
         raise RuntimeError("warmup requires graphs=True — an eager engine "
                            "has no graphs to capture")
     graphs = eng._graphs
     fam = executable_family(eng, max_prompt_len=max_prompt_len)
     t_start = time.perf_counter()
-    n_start = sum(graphs.captures.values())
+    c_start = compile_events.total()
+    if eng.trace is not None:
+        eng.trace.emit("warmup_start", step=eng.step_count,
+                       n_items=len(fam["items"]))
     rows: List[Dict[str, Any]] = []
     last: Dict[Any, Any] = {}       # dispatch outputs per fetch source
     graphs.warming = True
     try:
         for item in fam["items"]:
             row = _warm_item(eng, item, last)
-            if row is not None:
-                rows.append(row)
+            if row is None:
+                continue
+            rows.append(row)
+            if row["captures"]:
+                eng.metrics.counter(
+                    "serve_compile_total", compile_events.METRIC_HELP,
+                    phase="warmup", kind=item.kind).inc(row["captures"])
     finally:
         graphs.warming = False
 
@@ -259,9 +274,17 @@ def warmup_engine(eng, max_prompt_len: Optional[int] = None
         agg = by_kind.setdefault(r["kind"], {"items": 0, "captures": 0})
         agg["items"] += 1
         agg["captures"] += r["captures"]
-    return {"warmup_ms": (time.perf_counter() - t_start) * 1e3,
-            "captures": sum(graphs.captures.values()) - n_start,
-            "items": rows, "by_kind": by_kind, "expected": fam["expected"],
+    warmup_ms = (time.perf_counter() - t_start) * 1e3
+    captures = compile_events.total() - c_start
+    eng.metrics.gauge("serve_warmup_ms",
+                      "wall time of the last graph-family warmup"
+                      ).set(warmup_ms)
+    if eng.trace is not None:
+        eng.trace.emit("warmup_done", step=eng.step_count,
+                       n_items=len(rows), compiles=captures,
+                       warmup_ms=warmup_ms)
+    return {"warmup_ms": warmup_ms, "captures": captures, "items": rows,
+            "by_kind": by_kind, "expected": fam["expected"],
             "census": eng.executable_census(), "skipped": fam["skipped"],
             "note": "fetch items allocate the token fetch's pinned host "
                     "buffers and sample items run the host sampler; "

@@ -10,7 +10,9 @@ whose shapes follow the schedule.  Here each decode and chunk dispatch of
   ``masked_select``, ...), builds no tensor from host data, and converts
   nothing to numpy or Python;
 * two different schedules in one bucket (other live lanes, positions,
-  starts, lengths and k) call the same ops on the same shapes.
+  starts, lengths and k) call the same ops on the same shapes;
+* with metrics and an event trace on, which record each dispatch from
+  host state alone.
 
 The fixed-shape chunk writes (``hybrid_cache.lane_writes``, applied by
 ``apply_lane_writes_``) are also held to a plain loop over the live
@@ -26,6 +28,7 @@ from repro_torch.configs import SwanConfig, get_smoke_config  # noqa: E402
 from repro_torch.core import hybrid_cache as hc  # noqa: E402
 from repro_torch.launch.io import make_batch  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.obs import EventTrace  # noqa: E402
 from repro_torch.runtime.serve_engine import ServeEngine  # noqa: E402
 from repro_torch.runtime.serve_loop import calibrate_swan  # noqa: E402
 
@@ -82,7 +85,8 @@ def model():
 def _engine(model, layout):
     cfg, params, absorbed, pj = model
     kw = dict(max_seq=MAX_SEQ, n_slots=N_SLOTS, prefill_chunk=CHUNK,
-              prefill_slots=LANES, device="cpu")
+              prefill_slots=LANES, metrics=True, trace=EventTrace(),
+              device="cpu")
     if layout == "dense":
         return ServeEngine(cfg, params, **kw)
     if layout == "paged":
@@ -126,6 +130,7 @@ def test_dispatch_reads_nothing_back_and_follows_the_bucket(model, layout,
         for i in range(N_SLOTS):                  # a mapped table prefix
             eng.pool.ensure(i, 24)
         eng._device_table(width)                  # uploaded outside
+    n_events = len(eng.trace.events)              # the pages' page_map
     traces = []
     for operands in _schedules(kind, layout):
         rec = _Recorder()
@@ -143,6 +148,8 @@ def test_dispatch_reads_nothing_back_and_follows_the_bucket(model, layout,
         traces.append(rec.ops)
     assert len(traces[0]) > 100
     assert traces[0] == traces[1]
+    timed = eng.metrics.get("serve_dispatch_ms", kind=kind, kernel="torch")
+    assert timed.count == 2 and len(eng.trace.events) == n_events
 
 
 # ---------------------------------------------------------------------------

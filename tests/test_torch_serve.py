@@ -108,9 +108,11 @@ def test_launcher_runs_on_cpu(capsys):
 
 def test_port_runs_without_jax_or_the_reference(tmp_path):
     """The lockstep session, the paged, chunked engine (with its graph
-    family enumerated by ``runtime.warmup``) and the kernel
-    microbenchmark (all six kernels' wrappers) run on the CPU with neither
-    ``jax`` nor any ``repro.`` or ``benchmarks`` module imported."""
+    family enumerated by ``runtime.warmup``), the launcher with
+    ``--metrics-out``, ``--trace-out`` and ``--profile-steps``, the serve
+    benchmarks and the kernel microbenchmark (all six kernels' wrappers)
+    run on the CPU with neither ``jax`` nor any ``repro.`` or
+    ``benchmarks`` module imported."""
     code = (
         "import sys\n"
         "from repro_torch.configs import SwanConfig, get_smoke_config\n"
@@ -135,6 +137,19 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
         "assert sorted(len(c.tokens) for c in done) == [3, 3, 3]\n"
         "fam = repro_torch.runtime.warmup.executable_family(e)\n"
         "assert fam['expected']['chunk']['paged'] > 0\n"
+        "repro_torch.launch.serve.main(['--arch', 'llama3-8b', '--smoke',"
+        " '--swan', '--k', '8', '--buffer', '8', '--tokens', '3', '--batch',"
+        " '2', '--prompt-len', '12', '--max-seq', '64', '--device', 'cpu',"
+        " '--engine', '--paged', '--page-size', '16', '--prefill-chunk', '8',"
+        f" '--metrics-out', {str(tmp_path / 'm.prom')!r}, '--trace-out',"
+        f" {str(tmp_path / 't.jsonl')!r}, '--profile-steps', '2',"
+        f" '--profile-dir', {str(tmp_path / 'prof')!r}])\n"
+        "from repro_torch.obs import EventTrace, parse_prometheus\n"
+        f"m = parse_prometheus(open({str(tmp_path / 'm.prom')!r}).read())\n"
+        "assert m['samples'][('serve_tokens_generated_total', ())] == 12\n"
+        f"assert EventTrace.read({str(tmp_path / 't.jsonl')!r})\n"
+        "from repro_torch.benchmarks import bench_serve_engine, "
+        "bench_paged_cache, bench_warmup\n"
         "from repro_torch.benchmarks import bench_kernels\n"
         "import repro_torch.analysis.roofline\n"
         "import repro_torch.kernels.flash_prefill.ops\n"
