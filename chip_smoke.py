@@ -82,11 +82,27 @@ Phases, each of which must pass (any failure exits non-zero):
               three runs: none may count more than 32 x the window's
               dispatches, one must count exactly).  Then the graphed step
               ms of the graphs phase with metrics on and off.
+10. train   — the decode kernel against its plain version at the quality
+              benches' shapes (B=8, Kv=2, G=2, dh=32, b=8, f32 queries,
+              f32 and int8 values, k from 1 to 32, sp_len 0 to 228; two
+              launches bit for bit); llama3-8b's widths cut to 4 of its 32
+              layers (bf16 params, f32 AdamW moments, remat, 2
+              microbatches, global batch 8 x 512) trained 12 steps
+              straight and 6 + an async checkpoint + a fresh Trainer's
+              resume to 12: finite, falling losses, the resumed ones equal
+              to the straight run's (bit for bit or within 1e-3), ms/step,
+              tokens/s, peak memory and MFU printed; then the quality
+              benchmarks' tiny LM trained 900 steps on the card (f32, TF32
+              off), calibrated and scored by the six benches' ``run()``
+              (Tables 1-3, Fig. 2b, Fig. 4, adaptive k): every NLL and
+              logit error finite, Table 1's full-retention row within 1e-3
+              of dense, the decode kernel launched in the buffered benches
+              and not at ``buffer=0`` (counts zeroed before each bench).
 
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
 that ran the kernel — the bench, the lockstep serve, the engines, graphed
-and eager — and
+and eager, the quality benches — and
 ``launches_by_path`` per path), and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.
@@ -1891,6 +1907,331 @@ def exact_phase(kernels):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 10: train — B1 at the quality benches' shapes, full-width training
+# with a resume, the tiny LM trained and scored by the six quality benches
+# ---------------------------------------------------------------------------
+
+# the quality benches' decode shapes (the tiny LM: Kv=2, G=2, dh=32, f32;
+# eval batch 8, SwanConfig(buffer=8)); slab rows cover Fig. 4's 228 tokens
+TB, TKV, TG, TDH, TBUF, TS = 8, 2, 2, 32, 8, 240
+TINY_KS = (1, 2, 3, 6, 8, 16, 24, 32)
+TINY_CASES = {
+    # sp_len 0, 0, 0, 1, 31, 64, 100, 228 (ring part filled, then full)
+    "per-sequence pos, sp_len 0..228": [0, 3, 7, 8, 38, 71, 107, 235],
+    "the NLL benches' last step (sp_len 152)": [159] * TB,
+    "Fig. 4's last step (sp_len 220)": [227] * TB,
+}
+# full-width training: llama3-8b's widths, 4 of its 32 layers (32 need
+# ~96 GB before activations: bf16 params and grads, f32 AdamW moments)
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 4, 12, 8, 512, 2
+# the split run saves asynchronously at step 6 and trains on to step 9
+# while the write runs; a fresh Trainer resumes from step 6
+TRAIN_CKPT_STEP, TRAIN_SPLIT_STOP = 6, 9
+
+
+def tiny_decode_inputs(kind, pos, gen, k):
+    """B1's operands as the tiny LM's serve path gives them: f32 queries
+    and ring, f32 values or int8 values with f32 per-row scales."""
+    import torch
+    dev = "cuda"
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    idx = lambda: torch.rand((TB, TKV, TS, TDH), generator=gen, device=dev
+                             ).argsort(-1)[..., :k].to(torch.int8)
+    a = {"q": rnd(TB, TKV, TG, TDH), "k_idx": idx(), "v_idx": idx(),
+         "buf_k": rnd(TB, TKV, TBUF, TDH), "buf_v": rnd(TB, TKV, TBUF, TDH),
+         "buf_pos": ring_positions(pos, TBUF),
+         "pos": torch.tensor(pos, dtype=torch.int32, device=dev)}
+    a["sp_len"] = torch.clamp(a["pos"] + 1 - TBUF, min=0).to(torch.int32)
+    for s in "kv":
+        if kind == "int8":
+            a[f"{s}_vals"] = torch.randint(-127, 128, (TB, TKV, TS, k),
+                                           generator=gen, device=dev
+                                           ).to(torch.int8)
+            a[f"{s}_scale"] = rnd(TB, TKV, TS).abs() * 0.05 + 0.01
+        else:
+            a[f"{s}_vals"] = rnd(TB, TKV, TS, k)
+    return a
+
+
+def tiny_decode_check(tol=5e-5):
+    """B1 against its plain twin at the quality benches' shapes (tolerance
+    ``tol`` abs+rel, the f32 contract) and against itself (a second launch:
+    identical bits).  Returns the largest error."""
+    import torch
+    from repro_torch.kernels.swan_decode.swan_decode import (
+        swan_decode, swan_decode_plain)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    worst = 0.0
+    for kind in ("f32", "int8"):
+        for k in TINY_KS:
+            errs, same = [], True
+            for case, pos in TINY_CASES.items():
+                a = tiny_decode_inputs(kind, pos, gen, k)
+                got, again = call(swan_decode, a), call(swan_decode, a)
+                want = call(swan_decode_plain, a)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                check(bool(torch.isfinite(got).all())
+                      and not bool((err > tol * (1 + want.abs())).any()),
+                      f"swan_decode[{kind}] k={k} {case}: kernel disagrees "
+                      "with plain")
+                check(torch.equal(got, again),
+                      f"swan_decode[{kind}] k={k} {case}: two launches differ")
+                errs.append(err.max().item())
+            worst = max(worst, *errs)
+            log(f"  swan_decode[{kind}] B={TB} Kv={TKV} G={TG} dh={TDH} "
+                f"b={TBUF} k={k}: max_abs_err "
+                + " / ".join(f"{e:.2e}" for e in errs)
+                + f" over {len(TINY_CASES)} position sets (tol {tol:g} "
+                "abs+rel); 2 launches equal")
+    return worst
+
+
+def train_run(tc, steps=None, step_ms=None, writing=None):
+    """One ``Trainer.run`` on the card in its own scope (so that its
+    params and moments are freed on return): ({step: loss}, parameter
+    count, final step).  With ``step_ms`` each step's (time, the
+    optimizer's device time) in ms is appended, the card synchronised
+    before and after the step.  With ``writing``, whether an async
+    checkpoint write was running as each step began is appended."""
+    import torch
+    from repro_torch.runtime.train_loop import Trainer
+    from repro_torch.tree import leaves
+    from repro_torch.runtime import train_loop
+    tr = Trainer(tc, device="cuda")
+    real_update = train_loop.adamw_update
+    if step_ms is not None:
+        inner = tr.step_fn
+        opt_events = []
+
+        def timed_update(*args):
+            # CUDA events around the optimizer: its device time, apart
+            # from the forward, backward and accumulation before it
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real_update(*args)
+            ev[1].record()
+            opt_events.append(ev)
+            return out
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            a, b = opt_events.pop()
+            step_ms.append(((time.perf_counter() - t0) * 1e3,
+                            a.elapsed_time(b)))
+            return out
+        tr.step_fn = timed
+        train_loop.adamw_update = timed_update
+    if writing is not None:
+        unwatched = tr.step_fn
+
+        def watched(*args):
+            th = tr.ckpt._thread
+            writing.append(th is not None and th.is_alive())
+            return unwatched(*args)
+        tr.step_fn = watched
+    try:
+        out = tr.run(steps)
+    finally:
+        tr.preemption.close()
+        train_loop.adamw_update = real_update
+    n_params = sum(x.numel() for x in leaves(out["params"]))
+    return {r["step"]: r["loss"] for r in out["log"]}, n_params, out["step"]
+
+
+def train_fullwidth(smi):
+    """llama3-8b's widths at 4 layers, bf16, remat, two microbatches:
+    12 steps straight; then 9 steps with an async checkpoint at step 6,
+    written while steps 6-8 update the params and moments in place, and a
+    fresh Trainer resuming from it to step 12.  Checks finite and falling
+    losses, the write overlapping updates, and the split and resumed
+    losses against the straight run's."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import OptimizerConfig, TrainConfig, get_config
+
+    full = get_config("llama3-8b")
+    cfg = full.replace(n_layers=TRAIN_LAYERS, remat=True,
+                       grad_accum=TRAIN_ACCUM)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, decay_steps=TRAIN_STEPS)
+    log(f"  llama3-8b widths (d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) "
+        f"cut to {TRAIN_LAYERS} of {full.n_layers} layers; {cfg.param_dtype} "
+        f"params, {opt.state_dtype} AdamW moments, remat "
+        f"{cfg.remat_policy}, grad_accum {TRAIN_ACCUM}, global batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, synthetic stream, {TRAIN_STEPS} "
+        "steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        log(f"  checkpoints in a temporary directory ({free_gb:.0f} GB free)")
+        base = dict(model=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                    steps=TRAIN_STEPS, log_every=1, keep_checkpoints=1,
+                    async_checkpoint=True, optimizer=opt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        t0 = time.perf_counter()
+        straight, n_params, end = train_run(
+            TrainConfig(checkpoint_dir=f"{tmp}/a", checkpoint_every=100,
+                        **base), step_ms=ms)
+        t_straight = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        shutil.rmtree(f"{tmp}/a")
+        t0 = time.perf_counter()
+        split = TrainConfig(**{**base, "checkpoint_dir": f"{tmp}/b",
+                               "checkpoint_every": TRAIN_CKPT_STEP,
+                               "keep_checkpoints": 2})
+        writing = []
+        first, _, mid = train_run(split, steps=TRAIN_SPLIT_STOP,
+                                  writing=writing)
+        shutil.rmtree(f"{tmp}/b/step_{TRAIN_SPLIT_STOP:08d}")
+        saved = Checkpointer(f"{tmp}/b").latest_step()
+        resumed, _, end2 = train_run(split)
+        t_split = time.perf_counter() - t0
+    losses = [straight[s] for s in range(TRAIN_STEPS)]
+    log("  losses: " + " ".join(f"{x:.4f}" for x in losses))
+    check(end == end2 == TRAIN_STEPS and mid == TRAIN_SPLIT_STOP
+          and saved == TRAIN_CKPT_STEP,
+          f"steps: straight {end}, split {mid} (resumed from {saved}), "
+          f"resumed {end2}")
+    overlapped = sum(writing[TRAIN_CKPT_STEP:])
+    check(overlapped > 0, f"the step-{TRAIN_CKPT_STEP} async write ended "
+          "before the next update began: nothing overlapped it")
+    check(all(math.isfinite(x) for x in losses), "a training loss is not finite")
+    last3 = sum(losses[-3:]) / 3
+    check(last3 < losses[0], f"the loss did not fall: first {losses[0]:.4f}, "
+          f"mean of the last three {last3:.4f}")
+    check(sorted(resumed) == list(range(TRAIN_CKPT_STEP, TRAIN_STEPS))
+          and all(first[s] == straight[s] for s in range(TRAIN_SPLIT_STOP)),
+          "the split run's steps are not the straight run's")
+    rel = max(abs(resumed[s] - straight[s]) / abs(straight[s])
+              for s in resumed)
+    exact = all(resumed[s] == straight[s] for s in resumed)
+    log(f"  the step-{TRAIN_CKPT_STEP} async save was still writing as "
+        f"{overlapped} of the {TRAIN_SPLIT_STOP - TRAIN_CKPT_STEP} in-place "
+        f"updates of steps {TRAIN_CKPT_STEP}-{TRAIN_SPLIT_STOP - 1} began")
+    log(f"  resumed at step {TRAIN_CKPT_STEP} from the async checkpoint: "
+        f"losses of steps {TRAIN_CKPT_STEP}-{TRAIN_STEPS - 1} "
+        + ("equal the straight run's bit for bit" if exact else
+           f"within {rel:.2e} relative of the straight run's (not bit for "
+           "bit)"))
+    check(rel <= 1e-3, f"resumed losses differ from the straight run's: {rel}")
+    steady = statistics.median(t for t, _ in ms[2:])      # steps 3-12
+    opt_ms = statistics.median(o for _, o in ms[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / (steady / 1e3) / PEAK_FLOPS   # dense bf16
+    log(f"  {smi}: median {steady:.1f} ms/step over steps 3-{TRAIN_STEPS} "
+        f"(first two {ms[0][0]:.1f}, {ms[1][0]:.1f} ms), of which AdamW "
+        f"{opt_ms:.1f} ms on the card (CUDA events; median); "
+        f"{tokens / steady * 1e3:.0f} "
+        f"tokens/s; peak device memory {peak / 2**30:.2f} GiB; MFU "
+        f"{100 * mfu:.2f}% = 6 x N x tokens / step time / "
+        f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s with N "
+        f"= {n_params} parameters, {tokens} tokens a step; straight run "
+        f"{t_straight:.1f} s, split run with three saves and a restore {t_split:.1f} s")
+    return {"ms_per_step": steady, "adamw_ms": opt_ms, "mfu": mfu,
+            "peak_bytes": peak}
+
+
+# (module, name in the logs, buffered: its decode reads go through B1)
+QUALITY_BENCHES = (("bench_table1_retention", True),
+                   ("bench_table2_kv_split", False),
+                   ("bench_table3_projection", False),
+                   ("bench_buffer_rescue", True),
+                   ("bench_longcontext_error", True),
+                   ("bench_adaptive_k", True))
+
+
+def quality_phase(kernels):
+    """The tiny LM trained for the reference's 900 steps on the card (f32,
+    TF32 off), calibrated, and scored by the six quality benches' ``run()``
+    (their JSON into build/bench_out).  B1's count is zeroed before each
+    bench and read after it: it must rise in the buffered benches and stay
+    0 in the buffer=0 ones.  Returns the launches per kernel over the six."""
+    import importlib
+    import math
+    import os
+    import re
+    import tempfile
+    import torch
+    from repro_torch.benchmarks import common
+
+    os.environ["REPRO_BENCH_OUT"] = str(Path(__file__).resolve().parent
+                                        / "build" / "bench_out")
+    total = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_BENCH_CKPT"] = tmp
+        os.environ["REPRO_BENCH_STEPS"] = "900"
+        try:
+            t0 = time.perf_counter()
+            *_, tlog = common.trained_tiny_lm("cuda", with_log=True)
+            torch.cuda.synchronize()
+            log(f"  tiny LM (4 layers, d_model 128, f32) trained "
+                f"{os.environ['REPRO_BENCH_STEPS']} steps and calibrated in "
+                f"{time.perf_counter() - t0:.1f} s: loss "
+                f"{tlog[0]['loss']:.4f} -> {tlog[-1]['loss']:.4f}")
+            rows = {}
+            for name, buffered in QUALITY_BENCHES:
+                mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+                for k in kernels:
+                    k.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rec = mod.run("cuda")
+                torch.cuda.synchronize()
+                counts = {k.name: k.launches for k in kernels}
+                total.update(counts)
+                n = counts["swan_decode"]
+                log(f"  {name}: {len(rec.rows)} rows in "
+                    f"{time.perf_counter() - t0:.1f} s; swan_decode launches "
+                    f"{n}")
+                check((n > 0) == buffered and sum(counts.values()) == n,
+                      f"{name}: launches {counts} (buffered: {buffered})")
+                nums = [float(x) for r in rec.rows for x in re.findall(
+                    r"(?:nll|err|delta)=([-+]?(?:\d+\.\d+|nan|inf))",
+                    r["derived"])]
+                check(nums and all(math.isfinite(x) for x in nums),
+                      f"{name}: an NLL or logit error is not finite")
+                rows[name] = rec.rows
+        finally:
+            common._trained.cache_clear()
+            del os.environ["REPRO_BENCH_CKPT"], os.environ["REPRO_BENCH_STEPS"]
+    full = [r for r in rows["bench_table1_retention"]
+            if r["derived"].startswith("ratio=1.00_k=")][0]["derived"]
+    delta = float(re.search(r"delta=([-+0-9.]+)", full).group(1))
+    log(f"  table 1 at full retention (k = d_head): {full} (|delta| <= 1e-3)")
+    check(abs(delta) <= 1e-3, "full retention is not lossless against dense")
+    check_row = rows["bench_table3_projection"][-1]["derived"]
+    log(f"  table 3 readout (the reference's own, not a gate): {check_row}")
+    return dict(total)
+
+
+def train_phase(kernels, smi):
+    t_phase = time.perf_counter()
+    log(f"[train] swan_decode vs plain at the quality benches' shapes (B={TB} "
+        f"Kv={TKV} G={TG} dh={TDH} b={TBUF}, f32 q; f32 and int8 values; k in "
+        f"{TINY_KS})")
+    worst = tiny_decode_check()
+    log(f"  worst {worst:.2e}")
+    log("[train] full-width training (llama3-8b widths, 4 layers), with a "
+        "checkpoint resume")
+    train_fullwidth(smi)
+    log("[train] the tiny LM trained on the card and scored by the six "
+        "quality benches")
+    counts = quality_phase(kernels)
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # the tensor-core instances: each must hold mma instructions in its SASS and
 # spill nothing
 TENSOR_CORE_INSTANCES = ("flash_prefill_bf16_kernel", "swan_chunk_mma_kernel",
@@ -2002,7 +2343,7 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
 PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs",
-          "chunk_exact", "obs")
+          "chunk_exact", "obs", "train")
 
 
 def main(argv=None) -> int:
@@ -2109,6 +2450,8 @@ def main(argv=None) -> int:
         record("obs_launcher", obs_phase(KERNELS))
         if "graphs" in phases:
             log_on_off(on_off, smi)
+    if "train" in phases:
+        record("quality", train_phase(KERNELS, smi))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if set(phases) != set(PHASES):
         return 0                        # a partial run prints no result

@@ -1,6 +1,18 @@
-"""Shared benchmark infrastructure (port of the timing and record part of
-``benchmarks/common.py``, :119-215).
+"""Shared benchmark infrastructure (port of ``benchmarks/common.py``).
 
+* ``trained_tiny_lm()`` — trains (once per process, and once on disk) the
+  reference's small llama-family LM on the deterministic synthetic corpus
+  on the given device; the quality benchmarks (paper Tables 1-3, Figs
+  2b/3/4, adaptive k) score this model under different SWAN settings.
+  ``$REPRO_BENCH_STEPS`` (default 900) sets its training steps and
+  ``$REPRO_BENCH_CKPT`` (default ``repro_torch_bench_lm`` in the temporary
+  directory) its checkpoint directory: a checkpoint there at or past the
+  step count is restored instead of training again, also one written by
+  the reference's trainer.
+* ``swan_teacher_forced_nll`` — SWAN-faithful perplexity: tokens are
+  scored through the serving path (prefill + incremental decode with the
+  compressed hybrid cache; on the card the decode kernel reads it), so
+  compression errors propagate exactly as in deployment.
 * ``timeit_call`` — microbenchmark helper returning us per call.  A call
   whose result lies on the card is timed with CUDA events: the median
   over the launches, the L2 cache flushed before each one (``time_ms``);
@@ -12,21 +24,25 @@
   optional ``repro_torch.obs`` metrics snapshots, torch version, and the
   card's name or ``cpu``) into ``$REPRO_BENCH_OUT`` (default
   ``bench_out/``).
-
-The reference's ``trained_tiny_lm`` and NLL helpers wait for the port's
-training slice.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+
+from repro_torch.configs import (ModelConfig, OptimizerConfig, SwanConfig,
+                                 TrainConfig)
+from repro_torch.data.pipeline import SyntheticStream
+from repro_torch.device import DeviceLike, f32_matmul, resolve_device
 
 L2_FLUSH_BYTES = 256 << 20       # > the H100's 50 MB L2: each launch starts cold
 
@@ -54,6 +70,112 @@ def serve_model(smoke: bool, device: torch.device, calib_len: int = 32):
     pj = calibrate_swan(api, cfg, params,
                         make_batch(cfg, 2, calib_len, seed=3, device=device))
     return cfg, params, pj, api.absorb(params, cfg, pj)
+
+
+# ---------------------------------------------------------------------------
+# The quality benchmarks' trained model and scoring
+# ---------------------------------------------------------------------------
+
+def tiny_lm_config() -> ModelConfig:
+    return ModelConfig(
+        name="bench-tiny-lm", family="dense",
+        n_layers=4, d_model=128, n_heads=4, n_kv_heads=2, d_head=32,
+        d_ff=384, vocab_size=512, act="silu", rope_theta=10000.0,
+        dtype="float32", param_dtype="float32", remat=False,
+    )
+
+
+def _bench_env():
+    return (os.environ.get("REPRO_BENCH_CKPT",
+                           os.path.join(tempfile.gettempdir(),
+                                        "repro_torch_bench_lm")),
+            int(os.environ.get("REPRO_BENCH_STEPS", "900")))
+
+
+@functools.lru_cache(maxsize=1)
+def _trained(device: torch.device, ckpt_dir: str, steps: int):
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime.serve_loop import calibrate_swan
+    from repro_torch.runtime.train_loop import Trainer
+    cfg = tiny_lm_config()
+    tc = TrainConfig(
+        model=cfg, seq_len=64, global_batch=16, steps=steps,
+        optimizer=OptimizerConfig(lr=6e-3, warmup_steps=20,
+                                  decay_steps=steps),
+        checkpoint_dir=ckpt_dir, checkpoint_every=steps,
+        log_every=max(steps // 5, 1), seed=0)
+    trainer = Trainer(tc, device=device)
+    latest = trainer.ckpt.latest_step()
+    with f32_matmul():
+        try:
+            if latest is not None and latest >= steps:
+                params, _, _ = trainer.restore_or_init()
+                log = None
+            else:
+                out = trainer.run()
+                if out["step"] != steps:
+                    raise RuntimeError(
+                        f"tiny-lm training stopped at step {out['step']} of "
+                        f"{steps} (preempted); its checkpoint resumes it")
+                params, log = out["params"], out["log"]
+        finally:
+            trainer.preemption.close()
+        api = get_model(cfg)
+        # calibration data: the training language (same seed) at an unseen
+        # step, the paper's held-out calibration set
+        calib = SyntheticStream(cfg.vocab_size, 8, 96,
+                                seed=0).batch_at(50_000)["tokens"][:, :96]
+        pj = calibrate_swan(api, cfg, params,
+                            {"tokens": torch.as_tensor(calib, device=device)})
+        absorbed = api.absorb(params, cfg, pj)
+    if log:
+        print(f"# tiny-lm trained: loss {log[0]['loss']:.3f} -> "
+              f"{log[-1]['loss']:.3f} over {steps} steps")
+    return cfg, params, pj, absorbed, log
+
+
+def trained_tiny_lm(device: DeviceLike = None, with_log: bool = False):
+    """Returns (cfg, params, projections, absorbed_params) on ``device``
+    (the card by default), and the training log (None when restored) as a
+    fifth element with ``with_log``."""
+    out = _trained(resolve_device(device), *_bench_env())
+    return out if with_log else out[:4]
+
+
+def eval_tokens(cfg, batch: int = 8, seq: int = 160, step: int = 100_000,
+                device: DeviceLike = None) -> torch.Tensor:
+    """Held-out batch from the TRAINING language (same seed, unseen step)."""
+    s = SyntheticStream(cfg.vocab_size, batch, seq, seed=0)
+    return torch.as_tensor(s.batch_at(step)["tokens"][:, :seq],
+                           device=resolve_device(device))
+
+
+@torch.no_grad()
+def swan_teacher_forced_nll(cfg, params, tokens: torch.Tensor,
+                            swan: Optional[SwanConfig], projections=None,
+                            prompt_len: int = 8) -> float:
+    """Mean NLL of tokens[prompt_len:] scored through the serving path, on
+    ``tokens``' device (in full f32 matrix products there: TF32 would move
+    the tiny LM's NLLs by about 1e-3).  One host read, at the end."""
+    from repro_torch.models.registry import get_model
+    api = get_model(cfg)
+    B, S = tokens.shape
+    with f32_matmul():
+        state = api.init_serve_state(cfg, swan, B, S + 1, tokens.device)
+        logits, state = api.prefill(params, cfg,
+                                    {"tokens": tokens[:, :prompt_len]},
+                                    state, swan, projections)
+        logits = logits[:, -1]
+        nll = []
+        for t in range(prompt_len, S):
+            target = tokens[:, t]
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            nll.append(-lp.gather(1, target[:, None].long()).mean())
+            if t < S - 1:
+                logits, state = api.decode_step(params, cfg, target, t, state,
+                                                swan, projections)
+    # summed in f64, as the reference sums its per-step host floats
+    return float(torch.stack(nll).double().sum()) / len(nll)
 
 
 def time_ms(fn: Callable[[], Any], reps: int,

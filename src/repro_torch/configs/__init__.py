@@ -1,8 +1,10 @@
-"""Architecture registry of the port (the dense family only)."""
+"""Architecture registry of the port (the dense family only) and the
+config dataclasses."""
 from __future__ import annotations
 
 from repro_torch.configs import llama3_8b
-from repro_torch.configs.base import ModelConfig, SwanConfig  # noqa: F401
+from repro_torch.configs.base import (ModelConfig, OptimizerConfig,  # noqa: F401
+                                      SwanConfig, TrainConfig)
 
 _ARCHS = {"llama3-8b": llama3_8b}
 ARCH_IDS = list(_ARCHS)

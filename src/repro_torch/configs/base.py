@@ -1,10 +1,12 @@
 """Configuration dataclasses: the fields of ``repro.configs.base`` that the
-dense serving path reads, kept as the port's own copy."""
+dense serving and training paths read, kept as the port's own copy."""
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Optional
+import os
+import tempfile
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -47,7 +49,13 @@ class SwanConfig:
 class ModelConfig:
     """Dense decoder-only transformer of the llama kind: RMSNorm, RoPE, no
     biases, an untied output head.  The reference's other norm, bias and
-    embedding variants belong to families the port has not reached yet."""
+    embedding variants belong to families the port has not reached yet.
+
+    The training fields are the reference's, with two left out: its
+    ``scan_layers`` chooses how XLA compiles the layer stack, and the port
+    always loops over the layers in Python; its ``opt_state_dtype`` repeats
+    ``OptimizerConfig.state_dtype``, the one field the port reads for the
+    AdamW moments' dtype."""
     name: str
     family: str                   # only "dense" is ported
     n_layers: int
@@ -61,6 +69,10 @@ class ModelConfig:
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"       # activation / cache dtype
     param_dtype: str = "bfloat16"
+    # --- training -------------------------------------------------------
+    remat: bool = True            # recompute each layer in the backward
+    remat_policy: str = "full"    # full (save nothing) | dots (save matmul outputs)
+    grad_accum: int = 1           # microbatches per optimizer step
 
     @property
     def q_group(self) -> int:
@@ -68,3 +80,40 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Train configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    betas: Tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    state_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's training configuration, less its ``loss_dtype``,
+    which neither package reads (the loss is always taken in float32).
+    ``checkpoint_dir`` defaults to a directory under ``$TMPDIR``."""
+    model: ModelConfig
+    seq_len: int = 4096
+    global_batch: int = 256
+    steps: int = 1000
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    seed: int = 0
+    checkpoint_dir: str = field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_ckpt"))
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
+    log_every: int = 10
+    grad_compression: str = "none"   # none | int8

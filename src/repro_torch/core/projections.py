@@ -74,6 +74,23 @@ def compute_projections(qkv_per_layer, wo_per_layer: torch.Tensor,
             "spectrum_qk": e_qk, "spectrum_vo": e_vo}
 
 
+def random_orthogonal(gen: torch.Generator, shape_prefix: Tuple[int, ...],
+                      d: int) -> torch.Tensor:
+    """Random orthogonal bases [*shape_prefix, d, d] (paper Table 3's
+    'Random Projection' ablation): QR of standard normal matrices drawn
+    from ``gen`` (on ``gen``'s device), columns signed by diag(R) so the
+    draw is Haar-distributed.  Same law as the reference's, not the same
+    draws."""
+    n = 1
+    for s in shape_prefix:
+        n *= s
+    g = torch.randn((n, d, d), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    qmat, r = torch.linalg.qr(g)
+    out = qmat * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None, :]
+    return out.reshape(*shape_prefix, d, d)
+
+
 def check_orthogonal(p: torch.Tensor) -> float:
     """Max |PᵀP − I| over all bases in a stacked array."""
     d = p.shape[-1]

@@ -10,6 +10,8 @@ concurrent prefill).
         --buffer 128 --prompt-len 2048 --tokens 32 --max-seq 4096 \
         --engine --requests 8 --mixed-k --paged --prefill-chunk 256 \
         --prefill-slots 2
+    python -m repro_torch.launch.serve --arch llama3-8b --smoke \
+        --ckpt-dir ckpt --swan --k 8 --buffer 8 --device cpu
 
 run on the card, where every dispatch replays a CUDA graph per shape
 bucket (``--engine --warmup`` captures the engine's whole graph family
@@ -20,7 +22,9 @@ the CPU.  ``--metrics-out`` writes the final metrics (Prometheus text for
 ``.prom``/``.txt``, JSON otherwise), ``--trace-out`` streams the engine's
 JSONL event trace, and ``--profile-steps N`` writes a ``torch.profiler``
 trace of the first N engine steps into ``--profile-dir``
-(``repro_torch.obs``).
+(``repro_torch.obs``).  ``--ckpt-dir`` serves the params of the latest
+checkpoint there (one written by ``repro_torch.launch.train`` or by the
+reference's trainer) instead of seeded random weights.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import SwanConfig, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNELS
@@ -51,6 +56,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--ckpt-dir", help="restore params from a checkpoint")
     ap.add_argument("--swan", action="store_true")
     ap.add_argument("--k", type=int, default=None)
     ap.add_argument("--buffer", type=int, default=128)
@@ -147,6 +153,12 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     api = get_model(cfg)
     params = api.init_params(cfg, 0, device)
+    if args.ckpt_dir:
+        ck = Checkpointer(args.ckpt_dir)
+        step = ck.latest_step()
+        if step is not None:
+            params = ck.restore(step, {"params": params})["params"]
+            print(f"restored checkpoint step {step}")
 
     swan = projections = None
     if args.swan:

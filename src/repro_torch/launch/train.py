@@ -1,0 +1,70 @@
+"""Training launcher of the port.
+
+    python -m repro_torch.launch.train --arch llama3-8b --smoke \
+        --steps 50 --batch 8 --seq 128 --device cpu [--data tokens.bin]
+
+trains the small configuration on the CPU; without ``--device cpu`` the
+run is on the card (``--arch llama3-8b`` without ``--smoke`` is the full
+configuration, which needs more memory than one card holds at 32 layers).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+from repro_torch.configs import (OptimizerConfig, TrainConfig, get_config,
+                                 get_smoke_config)
+from repro_torch.data.pipeline import FileStream
+from repro_torch.runtime.train_loop import Trainer
+
+
+def main(argv=None):
+    """Parse ``argv`` and train; returns ``Trainer.run``'s result."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=None)
+    ap.add_argument("--data", help="binary token file (default: synthetic)")
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_train"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8"])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.grad_accum:
+        cfg = cfg.replace(grad_accum=args.grad_accum)
+    tc = TrainConfig(
+        model=cfg, seq_len=args.seq, global_batch=args.batch,
+        steps=args.steps,
+        optimizer=OptimizerConfig(lr=args.lr, decay_steps=args.steps),
+        checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
+        log_every=max(args.steps // 20, 1),
+        grad_compression=args.grad_compression)
+    stream = None
+    if args.data:
+        stream = FileStream(args.data, cfg.vocab_size, args.batch, args.seq)
+    trainer = Trainer(tc, stream=stream, device=args.device)
+    try:
+        out = trainer.run()
+    finally:
+        trainer.preemption.close()
+    for row in out["log"]:
+        print(f"step {row['step']:6d}  loss {row['loss']:.4f}  "
+              f"gnorm {row['grad_norm']:.3f}  lr {row['lr']:.2e}")
+    if out["stragglers"]:
+        print(f"watchdog: {len(out['stragglers'])} straggler steps flagged")
+    print(f"finished at step {out['step']}; checkpoints in {args.ckpt_dir}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,7 @@ from repro_torch.models import transformer as tfm
 @dataclass(frozen=True)
 class ModelApi:
     init_params: Callable        # (cfg, seed, device) -> params
-    forward: Callable            # (p, cfg, batch) -> logits
+    forward: Callable            # (p, cfg, batch) -> logits (differentiable)
     init_serve_state: Callable   # (cfg, swan, batch, max_seq, device) -> state
     prefill: Callable            # (p, cfg, batch, state, swan, proj, k_active, true_len) -> (logits, state)
     decode_step: Callable        # (p, cfg, token, pos, state, swan, proj, k_active, page_tab) -> (logits, state)
@@ -21,6 +21,11 @@ class ModelApi:
     # (p, cfg, batch, state, slot [P], start [P], swan, proj, ...) ->
     # (logits [P, V], state): one chunk for each of P slots' prefills
     prefill_chunk: Callable
+
+    def loss(self, p, cfg, batch):
+        """(loss, {"nll", "aux", "z"}) of ``batch["tokens"]``, the
+        reference's ``ModelApi.loss``; differentiable in ``p``."""
+        return tfm.xent_loss(self.forward(p, cfg, batch), batch["tokens"])
 
 
 def _forward(p, cfg, batch):

@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM, dense family: forward, SWAN calibration
-capture and absorption, and serving (prefill, batched chunked prefill and
-decode over a dense cache or a SWAN hybrid cache, slab or paged).
+"""Decoder-only transformer LM, dense family: the training forward (with
+remat) and loss, SWAN calibration capture and absorption, and serving
+(prefill, batched chunked prefill and decode over a dense cache or a SWAN
+hybrid cache, slab or paged).
 
 Port of ``repro.models.transformer``.  Parameters are nested dicts with
 stacked ``[L, ...]`` layer leaves, as in the reference; its ``scan`` over
@@ -11,9 +12,11 @@ kernels (``repro_torch.kernels``; gate in ``kernels.dispatch``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import absorb as absorb_mod
 from repro_torch.core import hybrid_cache as hc
@@ -116,13 +119,84 @@ def _layer_qkv_forward(lp: Params, cfg, x: torch.Tensor,
     return _layer_ffn(lp, cfg, x), (q, k, v)
 
 
-@torch.no_grad()
+def _layer_forward(lp: Params, cfg, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    return _layer_qkv_forward(lp, cfg, x, positions)[0]
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of the 2-D matrix products (the weight projections; the
+    reference's ``checkpoint_dots_with_no_batch_dims``), recompute the
+    rest."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, cfg):
+    """The layer body under the config's remat: 'full' recomputes the
+    whole layer in the backward (saves only its input), 'dots' saves the
+    matrix products' outputs and recomputes the rest."""
+    if not cfg.remat:
+        return body
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return lambda *args: ckpt.checkpoint(body, *args, use_reentrant=False,
+                                         **kw)
+
+
 def lm_forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] (the dense family has no aux loss)."""
+    """tokens [B, S] -> logits [B, S, V] (the dense family has no aux loss).
+    Differentiable in ``p``; with ``cfg.remat``, under autograd, each layer
+    is recomputed in the backward."""
     x, positions = _embed(p, cfg, tokens)
+    body = _remat(_layer_forward, cfg) if torch.is_grad_enabled() \
+        else _layer_forward
     for i in range(cfg.n_layers):
-        x, _ = _layer_qkv_forward(layer_params(p, i), cfg, x, positions)
+        x = body(layer_params(p, i), cfg, x, positions)
     return _head(p, x)
+
+
+def _logz_gold(logits: torch.Tensor, tokens: torch.Tensor):
+    """f32 log-partition and gold logit of each next-token prediction."""
+    lg = logits[:, :-1].float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tokens[:, 1:].long()[..., None])[..., 0]
+    return logz, gold
+
+
+def xent_loss(logits: torch.Tensor, tokens: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss ``ModelApi.loss`` trains on (the reference's
+    ``_xent_loss``): mean next-token cross-entropy plus the z-loss
+    1e-4·mean(logz²).  Returns (loss, {"nll", "aux", "z"})."""
+    logz, gold = _logz_gold(logits, tokens)
+    nll = (logz - gold).mean()
+    zloss = 1e-4 * (logz ** 2).mean()
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return nll + zloss + aux, {"nll": nll, "aux": aux, "z": zloss}
+
+
+def lm_loss(p: Params, cfg, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy and z-loss of ``batch["tokens"]`` as sums
+    over the target positions that ``batch["loss_mask"]`` [B, S] keeps
+    (all when absent), divided by their count."""
+    tokens = batch["tokens"]
+    logz, gold = _logz_gold(lm_forward(p, cfg, tokens), tokens)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(gold) if mask is None
+            else mask[:, 1:].float())
+    denom = torch.clamp(mask.sum(), min=1.0)
+    nll = ((logz - gold) * mask).sum() / denom
+    zloss = 1e-4 * ((logz ** 2) * mask).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=gold.device)
+    return nll + zloss + aux, {"nll": nll, "aux": aux, "z": zloss}
 
 
 # ---------------------------------------------------------------------------
