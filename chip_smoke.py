@@ -24,7 +24,11 @@ Phases, each of which must pass (any failure exits non-zero):
               (``library_ms``) and the bound (the port's roofline:
               ``repro_torch/analysis/roofline.py``); for the decode
               kernels and winnowing also the host's µs per wrapper call
-              and the device µs of their kernels (profiler).
+              and the device µs of their kernels (profiler).  Then B1-B4
+              at the dense family's other query groups, d_head 128:
+              yi-9b's (Kv 4, G 8) and olmo-1b's (Kv 16, G 1), every value
+              type, chunks of 256 x G queries, each against its plain
+              version and timed beside its bound.
    bench    — the kernel microbenchmark
               (``repro_torch.benchmarks.bench_kernels.run()``) at full
               llama3-8b width: every kernel launched, every roofline row
@@ -69,9 +73,23 @@ Phases, each of which must pass (any failure exits non-zero):
               then serves the trace with metrics off, on, on, off: the
               same tokens and dispatches, and graphed step ms with
               metrics on and off.
-8. chunk_exact — 4 layers at full retention: a prompt prefilled in two
+8. dense   — yi-9b (48 layers, d_model 4096, 32/4 heads: G = 8) and
+              olmo-1b (16 layers, d_model 2048, 16/16 heads: G = 1,
+              non-parametric LayerNorm, tied embeddings) at full width and
+              depth, bf16, seeded weights, each after the llama3-8b model
+              is freed: calibrate, absorb, the lockstep session eager and
+              graphed (logits bit for bit or within 5e-2, tokens equal, B1
+              once per layer per step through the replays, graphed
+              ms/step at most 0.6 x eager); the engine trace eagerly on
+              the slab (B1, B3) and graphed at first use on the paged pool
+              with ``async_fetch`` (B2, B4): equal tokens and dispatches,
+              each layout's kernels once per layer per dispatch (plus each
+              capture's warm run); then 4 layers at full retention
+              against the dense cache (decode; two-chunk prefill, slab and
+              paged).  Seconds per part printed.
+9. chunk_exact — 4 layers at full retention: a prompt prefilled in two
               chunks (slab, paged) against the dense monolithic prefill.
-9. obs      — the launcher (``repro_torch.launch.serve.main``) serving
+10. obs     — the launcher (``repro_torch.launch.serve.main``) serving
               llama3-8b on the paged pool with chunked prefill, graphed
               without a warmup (buckets captured at first use), with
               ``--metrics-out``, ``--trace-out`` and ``--profile-steps
@@ -82,7 +100,7 @@ Phases, each of which must pass (any failure exits non-zero):
               three runs: none may count more than 32 x the window's
               dispatches, one must count exactly).  Then the graphed step
               ms of the graphs phase with metrics on and off.
-10. train   — the decode kernel against its plain version at the quality
+11. train   — the decode kernel against its plain version at the quality
               benches' shapes (B=8, Kv=2, G=2, dh=32, b=8, f32 queries,
               f32 and int8 values, k from 1 to 32, sp_len 0 to 228; two
               launches bit for bit); llama3-8b's widths cut to 4 of its 32
@@ -102,10 +120,11 @@ Phases, each of which must pass (any failure exits non-zero):
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
 that ran the kernel — the bench, the lockstep serve, the engines, graphed
-and eager, the quality benches — and
+and eager, the dense phase's models, the quality benches — and
 ``launches_by_path`` per path), and the result line
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
-non-zero and prints no result.
+``{"ok": true, "device": {...}}``; the ``[done]`` line before them gives
+each phase's seconds.  Without a CUDA device it exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -166,31 +185,31 @@ def ring_positions(pos, b):
     return bp.cuda()
 
 
-def decode_inputs(kind: str, pos, gen, k=K, g=G, dh=DH):
-    """Operands of one decode read at the serve shapes (``g`` queries per
-    kv head and ``dh`` columns where given), ``k`` packed entries per row.
-    kind: value storage (bf16 / int8 / fp8 with bf16 q, or f32
+def decode_inputs(kind: str, pos, gen, k=K, g=G, dh=DH, kv=KV):
+    """Operands of one decode read at the serve shapes (``kv`` heads of
+    ``g`` queries and ``dh`` columns where given), ``k`` packed entries per
+    row.  kind: value storage (bf16 / int8 / fp8 with bf16 q, or f32
     throughout)."""
     import torch
     qdt = torch.float32 if kind == "f32" else torch.bfloat16
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    idx = lambda: torch.rand((B, KV, S, dh), generator=gen, device=dev
+    idx = lambda: torch.rand((B, kv, S, dh), generator=gen, device=dev
                              ).argsort(-1)[..., :k].to(torch.int8)
-    a = {"q": rnd(B, KV, g, dh).to(qdt), "k_idx": idx(), "v_idx": idx(),
-         "buf_k": rnd(B, KV, BUF, dh).to(qdt), "buf_v": rnd(B, KV, BUF, dh).to(qdt),
+    a = {"q": rnd(B, kv, g, dh).to(qdt), "k_idx": idx(), "v_idx": idx(),
+         "buf_k": rnd(B, kv, BUF, dh).to(qdt), "buf_v": rnd(B, kv, BUF, dh).to(qdt),
          "buf_pos": ring_positions(pos, BUF),
          "pos": torch.tensor(pos, dtype=torch.int32, device=dev)}
     a["sp_len"] = torch.clamp(a["pos"] + 1 - BUF, min=0).to(torch.int32)
     for s in "kv":
         if kind == "int8":
-            a[f"{s}_vals"] = torch.randint(-127, 128, (B, KV, S, k), generator=gen,
+            a[f"{s}_vals"] = torch.randint(-127, 128, (B, kv, S, k), generator=gen,
                                            device=dev).to(torch.int8)
-            a[f"{s}_scale"] = rnd(B, KV, S).abs() * 0.05 + 0.01
+            a[f"{s}_scale"] = rnd(B, kv, S).abs() * 0.05 + 0.01
         elif kind == "fp8":
-            a[f"{s}_vals"] = rnd(B, KV, S, k).to(torch.float8_e4m3fn)
+            a[f"{s}_vals"] = rnd(B, kv, S, k).to(torch.float8_e4m3fn)
         else:
-            a[f"{s}_vals"] = rnd(B, KV, S, k).to(qdt)
+            a[f"{s}_vals"] = rnd(B, kv, S, k).to(qdt)
     return a
 
 
@@ -206,7 +225,8 @@ def call(fn, a):
 def decode_bytes_flops(a):
     """Bytes the function must move (each input once, the output once;
     sparse rows counted only below sp_len) and its float operations."""
-    rows, k = int(a["sp_len"].sum()) * KV, a["k_vals"].shape[-1]
+    B_, Kv_, G_, dh_ = a["q"].shape
+    rows, k = int(a["sp_len"].sum()) * Kv_, a["k_vals"].shape[-1]
     per_row = 2 * k * (a["k_vals"].element_size() + 1)
     if "k_scale" in a:
         per_row += 2 * 4
@@ -214,17 +234,17 @@ def decode_bytes_flops(a):
                for n in ("buf_k", "buf_v", "buf_pos"))
     qo = 2 * a["q"].numel() * a["q"].element_size()
     valid_slots = int(((a["buf_pos"] >= 0)
-                       & (a["buf_pos"] <= a["pos"][:, None])).sum()) * KV
-    flops = 4 * G * (rows * k + valid_slots * DH)
-    return rows * per_row + ring + qo + 8 * B, flops
+                       & (a["buf_pos"] <= a["pos"][:, None])).sum()) * Kv_
+    flops = 4 * G_ * (rows * k + valid_slots * dh_)
+    return rows * per_row + ring + qo + 8 * B_, flops
 
 
-def dense_expand(vals, idx, scale):
-    """Dense f32 [..., rows, DH] form of packed values (times the per-row
+def dense_expand(vals, idx, scale, dh=DH):
+    """Dense f32 [..., rows, dh] form of packed values (times the per-row
     scale where there is one), for the SDPA yardsticks."""
     import torch
     v = vals.float() if scale is None else vals.float() * scale[..., None]
-    out = torch.zeros(tuple(idx.shape[:-1]) + (DH,), device=idx.device)
+    out = torch.zeros(tuple(idx.shape[:-1]) + (dh,), device=idx.device)
     return out.scatter_(-1, idx.long(), v)
 
 
@@ -235,20 +255,21 @@ def sdpa_yardstick(a):
     import torch
     import torch.nn.functional as F
 
-    kd = dense_expand(a["k_vals"], a["k_idx"], a.get("k_scale"))
-    vd = dense_expand(a["v_vals"], a["v_idx"], a.get("v_scale"))
+    B_, Kv_, G_, dh_ = a["q"].shape
+    kd = dense_expand(a["k_vals"], a["k_idx"], a.get("k_scale"), dh_)
+    vd = dense_expand(a["v_vals"], a["v_idx"], a.get("v_scale"), dh_)
     qdt = a["q"].dtype
     k_all = torch.cat([kd, a["buf_k"].float()], 2).to(qdt)
     v_all = torch.cat([vd, a["buf_v"].float()], 2).to(qdt)
-    k_all = k_all.repeat_interleave(G, dim=1).contiguous()   # [B, H, S+b, dh]
-    v_all = v_all.repeat_interleave(G, dim=1).contiguous()
-    q = a["q"].reshape(B, KV * G, 1, DH)
-    t = torch.arange(S, device="cuda")
+    k_all = k_all.repeat_interleave(G_, dim=1).contiguous()  # [B, H, S+b, dh]
+    v_all = v_all.repeat_interleave(G_, dim=1).contiguous()
+    q = a["q"].reshape(B_, Kv_ * G_, 1, dh_)
+    t = torch.arange(a["k_vals"].shape[2], device="cuda")
     mask = torch.cat([t[None] < a["sp_len"][:, None],
                       (a["buf_pos"] >= 0) & (a["buf_pos"] <= a["pos"][:, None])],
                      1)[:, None, None, :]                       # [B,1,1,S+b]
     fn = lambda: F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask)
-    return fn, fn().reshape(B, KV, G, DH)
+    return fn, fn().reshape(B_, Kv_, G_, dh_)
 
 
 def bench_shapes():
@@ -545,22 +566,22 @@ P_CHUNK, Q_CHUNK, CS = 2, 256 * G, 2048
 CPG = CS // PS
 
 
-def chunk_inputs(kind, sp, gen, q_len=Q_CHUNK, k=K):
-    """Operands of one chunk-stats read: f32 q [P, KV, q_len, DH], packed
-    slab [P, KV, CS, k] (+ scales), sp_len [P]."""
+def chunk_inputs(kind, sp, gen, q_len=Q_CHUNK, k=K, kv=KV):
+    """Operands of one chunk-stats read: f32 q [P, kv, q_len, DH], packed
+    slab [P, kv, CS, k] (+ scales), sp_len [P]."""
     import torch
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    idx = lambda: torch.rand((P_CHUNK, KV, CS, DH), generator=gen, device=dev
+    idx = lambda: torch.rand((P_CHUNK, kv, CS, DH), generator=gen, device=dev
                              ).argsort(-1)[..., :k].to(torch.int8)
-    a = {"q": rnd(P_CHUNK, KV, q_len, DH), "k_idx": idx(), "v_idx": idx(),
+    a = {"q": rnd(P_CHUNK, kv, q_len, DH), "k_idx": idx(), "v_idx": idx(),
          "sp_len": torch.tensor(sp, dtype=torch.int32, device=dev)}
     vdt = {"bf16": torch.bfloat16, "f32": torch.float32,
            "fp8": torch.float8_e4m3fn, "int8": torch.int8}[kind]
     for s_ in "kv":
-        a[f"{s_}_vals"] = garbage_like((P_CHUNK, KV, CS, k), vdt, gen)
+        a[f"{s_}_vals"] = garbage_like((P_CHUNK, kv, CS, k), vdt, gen)
         if kind == "int8":
-            a[f"{s_}_scale"] = rnd(P_CHUNK, KV, CS).abs() * 0.05 + 0.01
+            a[f"{s_}_scale"] = rnd(P_CHUNK, kv, CS).abs() * 0.05 + 0.01
     return a
 
 
@@ -568,14 +589,16 @@ def chunk_bytes_flops(a):
     """Bytes (valid packed rows of both sides, q, sp_len, the three outputs)
     and operations of one chunk-stats read: a sparse product, so 4·Q·k per
     valid row and kv head (q·k over the k stored entries, p·v into them)."""
-    rows = int(a["sp_len"].sum()) * KV
-    per_row = 2 * K * (a["k_vals"].element_size() + 1)
+    P_, Kv_, Q_, dh_ = a["q"].shape
+    k = a["k_vals"].shape[-1]
+    rows = int(a["sp_len"].sum()) * Kv_
+    per_row = 2 * k * (a["k_vals"].element_size() + 1)
     if "k_scale" in a:
         per_row += 2 * 4
     q_b = a["q"].numel() * 4
-    out_b = P_CHUNK * KV * Q_CHUNK * (2 + DH) * 4
-    flops = 4 * Q_CHUNK * K * rows
-    return rows * per_row + q_b + out_b + 4 * P_CHUNK, flops
+    out_b = P_ * Kv_ * Q_ * (2 + dh_) * 4
+    flops = 4 * Q_ * k * rows
+    return rows * per_row + q_b + out_b + 4 * P_, flops
 
 
 def chunk_sdpa_yardstick(a):
@@ -592,19 +615,87 @@ def chunk_sdpa_yardstick(a):
     return lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)
 
 
+CHUNK_TOL = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4, "fp8": 1e-4}
+CHUNK_NAMES = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
+
+
+def chunk_check(kind, case, a, gen, max_err):
+    """B3 and B4 against their plain twins on ``a``, B4 == B3 bit for bit
+    on the same logical rows (a shuffled page pool), empty lanes (0, 0,
+    0).  A case named "dead" gives lane 1 lane 0's pages.  Returns the
+    slab and paged arguments for timing."""
+    import torch
+    from repro_torch.kernels.swan_chunk.swan_chunk import (
+        swan_chunk_stats, swan_chunk_stats_paged, swan_chunk_stats_paged_plain,
+        swan_chunk_stats_plain)
+    sp = [int(x) for x in a["sp_len"].tolist()]
+    pool, tab = page_out(a, sp, gen, [n for n in CHUNK_NAMES if n in a],
+                         P_CHUNK, pg=CPG)
+    if "dead" in case:        # a dead lane reads a live lane's pages
+        tab[1] = tab[0]
+    sargs = [a[n] for n in ("q", "k_vals", "k_idx", "v_vals", "v_idx",
+                            "sp_len")]
+    skw = {"k_scale": a.get("k_scale"), "v_scale": a.get("v_scale")}
+    pargs = [a["q"], pool["k_vals"], pool["k_idx"], pool["v_vals"],
+             pool["v_idx"], a["sp_len"], tab]
+    pkw = {"pool_k_scale": pool.get("k_scale"),
+           "pool_v_scale": pool.get("v_scale")}
+    slab = swan_chunk_stats(*sargs, **skw)
+    paged = swan_chunk_stats_paged(*pargs, **pkw)
+    want = swan_chunk_stats_plain(*sargs, **skw)
+    want_p = swan_chunk_stats_paged_plain(*pargs, **pkw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(slab, paged))
+    m, l, o = slab
+    wm, wl, wo = want
+    live = wl > 0
+    on = lambda x, y: (x / y.clamp(min=1e-30)[..., None])  # noqa: E731
+    errs = {"m_safe": (m - wm).abs(), "l": (l - wl).abs() / (1 + wl.abs()),
+            "o/l": (on(o, l) - on(wo, wl))[live].abs()}
+    errs["o/l"] = errs["o/l"] / (1 + on(wo, wl)[live].abs())
+    err = max(e.max().item() if e.numel() else 0.0 for e in errs.values())
+    twin_same = all(torch.equal(x, y) for x, y in zip(want, want_p))
+    empty = (a["sp_len"] == 0)
+    zeros = all(not bool(x[empty].any()) for x in slab)
+    tol = CHUNK_TOL[kind]
+    log(f"  swan_chunk_stats[{kind:4s}] {case}: max err (abs+rel over "
+        f"m_safe, l, o/l) {err:.3e} (tol {tol:g}); paged == slab "
+        f"bit for bit: {same}; empty lanes (0, 0, 0): {zeros}")
+    check(all(bool(torch.isfinite(x).all()) for x in slab + paged)
+          and err <= tol and zeros and twin_same,
+          f"swan_chunk_stats[{kind}] {case}: kernel disagrees with plain")
+    check(same, f"swan_chunk_stats_paged[{kind}] {case}: != swan_chunk_stats")
+    max_err[kind] = max(max_err.get(kind, 0.0), err)
+    return sargs, skw, pargs, pkw, tab
+
+
+def chunk_timed_rows(label, a, sargs, skw, pargs, pkw, tab, flush):
+    """B3 and B4 timed on the same operands (slab, then paged)."""
+    from repro_torch.kernels.swan_chunk.swan_chunk import (
+        swan_chunk_stats, swan_chunk_stats_paged, swan_chunk_stats_paged_plain,
+        swan_chunk_stats_plain)
+    nbytes, flops = chunk_bytes_flops(a)
+    lib_fn = chunk_sdpa_yardstick(a)
+    return {"swan_chunk_stats": timed_rows(
+                f"swan_chunk_stats[bf16] {label}",
+                lambda: swan_chunk_stats(*sargs, **skw),
+                lambda: swan_chunk_stats_plain(*sargs, **skw), lib_fn,
+                nbytes, flops, flush),
+            "swan_chunk_stats_paged": timed_rows(
+                "swan_chunk_stats_paged[bf16] same operands, paged",
+                lambda: swan_chunk_stats_paged(*pargs, **pkw),
+                lambda: swan_chunk_stats_paged_plain(*pargs, **pkw), lib_fn,
+                nbytes + tab.numel() * 4, flops, flush)}
+
+
 def chunk_phase():
     """B3 and B4 against their plain twins (at the engine's and the bench's
     shapes and the tiling's edges), B4 == B3 bit for bit on the same
     logical rows, then their times at the engine's chunk shape."""
     import torch
-    from repro_torch.kernels.swan_chunk.swan_chunk import (
-        swan_chunk_stats, swan_chunk_stats_paged, swan_chunk_stats_paged_plain,
-        swan_chunk_stats_plain)
     gen = torch.Generator(device="cuda").manual_seed(2)
     # kernel and twin both compute in f32 on the same dequantised values, so
-    # every value type is held near f32 agreement
-    tol = {"f32": 1e-5, "bf16": 1e-4, "int8": 1e-4, "fp8": 1e-4}
-    names = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
+    # every value type is held near f32 agreement (CHUNK_TOL)
     # case -> (sp_len, queries, k): the engine chunk, empty and dead lanes and
     # the bench's full prefix, then the tiling's edges: a ragged query tile
     # (400 = 3 x 128 + 16), k = 32 and 128, and k = 1 (rows of 1-2 bytes,
@@ -622,57 +713,84 @@ def chunk_phase():
     for kind in ("bf16", "int8", "fp8", "f32"):
         for case, (sp, q_len, k) in cases.items():
             a = chunk_inputs(kind, sp, gen, q_len, k)
-            pool, tab = page_out(a, sp, gen, [n for n in names if n in a],
-                                 P_CHUNK, pg=CPG)
-            if "dead" in case:        # a dead lane reads a live lane's pages
-                tab[1] = tab[0]
-            sargs = [a[n] for n in ("q", "k_vals", "k_idx", "v_vals", "v_idx",
-                                    "sp_len")]
-            skw = {"k_scale": a.get("k_scale"), "v_scale": a.get("v_scale")}
-            pargs = [a["q"], pool["k_vals"], pool["k_idx"], pool["v_vals"],
-                     pool["v_idx"], a["sp_len"], tab]
-            pkw = {"pool_k_scale": pool.get("k_scale"),
-                   "pool_v_scale": pool.get("v_scale")}
-            slab = swan_chunk_stats(*sargs, **skw)
-            paged = swan_chunk_stats_paged(*pargs, **pkw)
-            want = swan_chunk_stats_plain(*sargs, **skw)
-            want_p = swan_chunk_stats_paged_plain(*pargs, **pkw)
-            torch.cuda.synchronize()
-            same = all(torch.equal(x, y) for x, y in zip(slab, paged))
-            m, l, o = slab
-            wm, wl, wo = want
-            live = wl > 0
-            on = lambda x, y: (x / y.clamp(min=1e-30)[..., None])  # noqa: E731
-            errs = {"m_safe": (m - wm).abs(), "l": (l - wl).abs() / (1 + wl.abs()),
-                    "o/l": (on(o, l) - on(wo, wl))[live].abs()}
-            errs["o/l"] = errs["o/l"] / (1 + on(wo, wl)[live].abs())
-            err = max(e.max().item() if e.numel() else 0.0 for e in errs.values())
-            twin_same = all(torch.equal(x, y) for x, y in zip(want, want_p))
-            empty = (a["sp_len"] == 0)
-            zeros = all(not bool(x[empty].any()) for x in slab)
-            log(f"  swan_chunk_stats[{kind:4s}] {case}: max err (abs+rel over "
-                f"m_safe, l, o/l) {err:.3e} (tol {tol[kind]:g}); paged == slab "
-                f"bit for bit: {same}; empty lanes (0, 0, 0): {zeros}")
-            check(all(bool(torch.isfinite(x).all()) for x in slab + paged)
-                  and err <= tol[kind] and zeros and twin_same,
-                  f"swan_chunk_stats[{kind}] {case}: kernel disagrees with plain")
-            check(same, f"swan_chunk_stats_paged[{kind}] {case}: != swan_chunk_stats")
-            max_err[kind] = max(max_err.get(kind, 0.0), err)
+            args = chunk_check(kind, case, a, gen, max_err)
             if kind == "bf16" and case == "sp_len 1000 | 1920":
-                nbytes, flops = chunk_bytes_flops(a)
-                lib_fn = chunk_sdpa_yardstick(a)
-                rows["swan_chunk_stats"] = timed_rows(
-                    "swan_chunk_stats[bf16] P=2 Q=1024 sp_len 1000|1920",
-                    lambda: swan_chunk_stats(*sargs, **skw),
-                    lambda: swan_chunk_stats_plain(*sargs, **skw), lib_fn,
-                    nbytes, flops, flush)
-                rows["swan_chunk_stats_paged"] = timed_rows(
-                    "swan_chunk_stats_paged[bf16] same operands, paged",
-                    lambda: swan_chunk_stats_paged(*pargs, **pkw),
-                    lambda: swan_chunk_stats_paged_plain(*pargs, **pkw), lib_fn,
-                    nbytes + tab.numel() * 4, flops, flush)
+                rows = chunk_timed_rows("P=2 Q=1024 sp_len 1000|1920", a,
+                                        *args, flush)
     del flush
     return max_err, rows
+
+
+# the dense family's other query groups at d_head 128: yi-9b (32/4 heads)
+# and olmo-1b (16/16 heads), as the dense phase serves them
+SERVED_GROUPS = (("yi-9b", 4, 8), ("olmo-1b", 16, 1))     # (arch, Kv, G)
+
+
+def served_groups_phase():
+    """B1 and B2 (k=64, b=128, every value type) and B3 and B4 (a chunk of
+    256 tokens, Q = 256·G) at yi-9b's G = 8 and olmo-1b's G = 1, d_head
+    128: each against its plain twin (B2 == B1 and B4 == B3 bit for bit),
+    then each timed beside its bound at the serve shape (bf16)."""
+    import torch
+    from repro_torch.kernels.swan_decode.swan_decode import (
+        SPLIT_ROWS, swan_decode, swan_decode_paged, swan_decode_paged_plain,
+        swan_decode_plain)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tol = {"f32": 1e-5, "bf16": 1e-2, "int8": 1e-2, "fp8": 1e-2}
+    R = SPLIT_ROWS
+    dec_cases = {"per-sequence pos": [PROMPT + NEW_TOKENS - 2, 1000, 3000, S - 7],
+                 "sp_len R-1 / R / R+1 / 1": [n + BUF - 1 for n in
+                                              (R - 1, R, R + 1, 1)]}
+    chunk_cases = {"sp_len 1000 | 1920": [1000, 1920],
+                   "sp_len 1920 | dead lane": [1920, 0]}
+    names = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
+    flush = flush_buffer()
+    max_err = {}
+    for arch, kv, g in SERVED_GROUPS:
+        shape = f"{arch} Kv={kv} G={g} dh={DH}"
+        for kind in ("bf16", "int8", "fp8", "f32"):
+            for case, pos in dec_cases.items():
+                decode_check(kind, f"{arch} Kv={kv} {case}",
+                             decode_inputs(kind, pos, gen, K, g, DH, kv),
+                             tol[kind], max_err)
+        a = decode_inputs("bf16", [PROMPT + NEW_TOKENS - 2] * B, gen, K, g,
+                          DH, kv)
+        nbytes, flops = decode_bytes_flops(a)
+        lib_fn, _ = sdpa_yardstick(a)
+        timed_rows(f"swan_decode[bf16] {shape} serve shape (sp_len "
+                   f"{int(a['sp_len'][0])})", lambda: call(swan_decode, a),
+                   lambda: call(swan_decode_plain, a), lib_fn, nbytes, flops,
+                   flush)
+        sp = [int(x) for x in a["sp_len"].tolist()]
+        pool, tab = page_out(a, sp, gen, [n for n in names if n in a], B)
+        pargs = ([a["q"], pool["k_vals"], pool["k_idx"], pool["v_vals"],
+                  pool["v_idx"]] + [a[n] for n in ARGS[5:]] + [tab])
+        got = swan_decode_paged(*pargs)
+        want = swan_decode_paged_plain(*pargs).float()
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        log(f"  swan_decode_paged[bf16] {shape} serve shape: max_abs_err "
+            f"{err.max().item():.3e} (tol {tol['bf16']:g} abs+rel)")
+        check(bool(torch.isfinite(got).all())
+              and not bool((err > tol["bf16"] * (1 + want.abs())).any()),
+              f"swan_decode_paged[bf16] {shape}: kernel disagrees with plain")
+        max_err["bf16"] = max(max_err["bf16"], err.max().item())
+        timed_rows(f"swan_decode_paged[bf16] {shape} serve shape",
+                   lambda: swan_decode_paged(*pargs),
+                   lambda: swan_decode_paged_plain(*pargs), lib_fn,
+                   nbytes + tab.numel() * 4, flops, flush)
+        cmax = {}
+        for kind in ("bf16", "int8", "fp8", "f32"):
+            for case, sp in chunk_cases.items():
+                a = chunk_inputs(kind, sp, gen, 256 * g, K, kv)
+                args = chunk_check(kind, f"{shape} Q=256x{g} {case}", a, gen,
+                                   cmax)
+                if kind == "bf16" and not case.endswith("lane"):
+                    chunk_timed_rows(f"{shape} P=2 Q=256x{g} {case}", a,
+                                     *args, flush)
+        max_err["chunk_bf16"] = cmax["bf16"]
+    del flush
+    return max_err
 
 
 # ---------------------------------------------------------------------------
@@ -911,17 +1029,18 @@ def bench_phase(kernels):
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
-def full_model():
-    """Full-width llama3-8b (bf16) from seeded weights, calibrated and
-    absorbed: (cfg, params, projections), shared by the serve and engine
-    phases."""
+def full_model(arch="llama3-8b"):
+    """A model of the dense family (llama3-8b unless ``arch`` names
+    another) at full width and depth (bf16) from seeded weights, calibrated
+    and absorbed: (cfg, params, projections), shared by the serve and
+    engine phases (and, for yi-9b and olmo-1b, the dense phase)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.io import make_batch
     from repro_torch.models.registry import get_model
     from repro_torch.runtime.serve_loop import calibrate_swan
 
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init_params(cfg, 0, "cuda")
@@ -932,7 +1051,8 @@ def full_model():
     log(f"  init + calibrate + absorb: {time.perf_counter() - t0:.1f} s "
         f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.dtype})")
+        f"{cfg.vocab_size}, {cfg.norm}{', tied' if cfg.tie_embeddings else ''}"
+        f", {cfg.dtype})")
     return cfg, params, projections
 
 
@@ -1352,11 +1472,12 @@ def check_executions(label, window, attempts=3):
     check(False, f"[{label}] no traced window saw the expected executions")
 
 
-def lockstep_graphs(kernels, model):
+def lockstep_graphs(kernels, model, profile=True):
     """The lockstep session eager and graphed in one call: the first
-    prefill and decode logits, the generated tokens, decode ms/step; a
-    profile of graphed decode steps.  Each session generates once before
-    the timed run, so the timed graphed run only replays."""
+    prefill and decode logits, the generated tokens, decode ms/step; with
+    ``profile``, a profile of graphed decode steps.  Each session
+    generates once before the timed run, so the timed graphed run only
+    replays."""
     import torch
     from repro_torch.configs import SwanConfig
     from repro_torch.launch.io import make_batch
@@ -1406,8 +1527,13 @@ def lockstep_graphs(kernels, model):
               f"{steps}")
         if mode == "graphed":
             g = sess._graphs
+            rep = sess.cache_report()
             log(f"  [lockstep graphed] graphs {dict(g.captures)}, replays "
-                f"{dict(g.replays)}, capture {g.capture_s:.2f} s")
+                f"{dict(g.replays)}, capture {g.capture_s:.2f} s; cache "
+                f"[{rep['mode']}] {rep['bytes'] / 1e6:.1f} MB vs dense "
+                f"{rep['dense_bytes'] / 1e6:.1f} MB ({rep['saving']:.1%} "
+                "saving)")
+        if mode == "graphed" and profile:
             state = {"tok": out[:, -1]}
 
             def step():
@@ -1435,7 +1561,7 @@ def lockstep_graphs(kernels, model):
     check(g["decode_ms"] <= GRAPH_SPEEDUP * e["decode_ms"],
           f"graphed lockstep {g['decode_ms']:.2f} ms/step is not under "
           f"{GRAPH_SPEEDUP} x eager {e['decode_ms']:.2f}")
-    return g["launches"]
+    return g["launches"], e["launches"]
 
 
 def engine_graphs(kernels, model, eager):
@@ -1806,8 +1932,110 @@ def log_on_off(on_off, smi):
 # phase 8: the chunked prefill at full retention against the dense prefill
 # ---------------------------------------------------------------------------
 
-def small_model():
-    """The exactness phases' model: llama3-8b at full width, 4 layers,
+# ---------------------------------------------------------------------------
+# the dense phase: the dense family's other models at full width and depth
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("yi-9b", "olmo-1b")
+
+
+def dense_engine(kernels, model, arch):
+    """The engine trace eagerly on the slab (B1, B3), then graphed at first
+    use on the 64-row paged pool with ``async_fetch`` (B2, B4): equal
+    tokens and dispatches; the two reports' dense bytes equal, the paged
+    report's slab-layout bytes at most the slab's reserved bytes (which
+    add the ring positions) and its live bytes below them; each layout's
+    kernels launched once per layer per dispatch (through the replays on
+    the paged pool, plus once per layer for each graph's warm run at its
+    capture).  Returns the launch counts of both runs."""
+    import torch
+    cfg = model[0]
+    eng = make_engine(model, graphs=False, metrics=False)
+    label = f"{arch} slab eager"
+    slab = drive(kernels, eng, engine_requests(cfg), label)
+    check_launches(slab, "slab", cfg.n_layers, label)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = make_engine(model, graphs=True, metrics=False, paged=True,
+                      page_size=PS, async_fetch=True)
+    label = f"{arch} paged graphed async_fetch"
+    paged = drive(kernels, eng, engine_requests(cfg), label)
+    g = eng._graphs
+    lazy, launches, d = dict(g.lazy_captures), paged["launches"], \
+        paged["dispatches"]
+    log(f"  [{label}] graphs captured at first use {lazy} in "
+        f"{g.capture_s:.1f} s; replays {dict(g.replays)}")
+    # each capture at first use runs its dispatch once eagerly (dead lanes)
+    # before recording it: those launches count too
+    check(launches["swan_decode_paged"]
+          == cfg.n_layers * (d["decode"] + lazy.get("decode", 0))
+          and launches["swan_chunk_stats_paged"]
+          == cfg.n_layers * (d["chunk"] + lazy.get("chunk", 0))
+          and launches["swan_decode"] == launches["swan_chunk_stats"] == 0,
+          f"[{label}] launches {launches} != {cfg.n_layers} x (dispatches "
+          f"{d} + captures' warm runs {lazy})")
+    check(paged["tokens"] == slab["tokens"],
+          f"[{arch}] paged graphed engine tokens != slab eager engine's")
+    check(paged["dispatches"] == slab["dispatches"],
+          f"[{arch}] dispatches {paged['dispatches']} != {slab['dispatches']}")
+    rs, rp = slab["report"], paged["report"]
+    check(rs["dense_bytes"] == rp["dense_bytes"]
+          and rp["slab_bytes"] <= rs["reserved_bytes"]
+          and rp["live_bytes"] < rs["reserved_bytes"],
+          f"[{arch}] cache reports disagree: slab {rs}, paged {rp}")
+    log(f"  [{arch}] paged tokens and dispatches == slab's "
+        f"({len(slab['tokens'])} requests); dense {rs['dense_bytes']} B in "
+        f"both, slab reserved {rs['reserved_bytes']} B (the paged report's "
+        f"slab layout {rp['slab_bytes']} B), paged live {rp['live_bytes']} B "
+        "at the end")
+    del eng, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return slab["launches"], paged["launches"]
+
+
+def dense_phase(kernels):
+    """yi-9b (G = 8) and olmo-1b (G = 1, non-parametric LayerNorm, tied
+    embeddings) at full width and depth, bf16, seeded weights: calibrate,
+    absorb, the lockstep session eager and graphed (logits and tokens
+    equal, B1 once per layer per step), the engine trace eager on the slab
+    and graphed on the paged pool, then 4 layers at full retention against
+    the dense cache (decode, and a two-chunk prefill on the slab and the
+    pool).  Returns the launch counts by path."""
+    import torch
+    counts = {}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        log(f"[dense] {arch}: full width and depth, SWAN k={K} b={BUF}")
+        model = full_model(arch)
+        t1 = time.perf_counter()
+        graphed, eager = lockstep_graphs(kernels, model, profile=False)
+        counts[f"dense_{arch}_lockstep_eager"] = eager
+        counts[f"dense_{arch}_lockstep_graphed"] = graphed
+        t2 = time.perf_counter()
+        slab, paged = dense_engine(kernels, model, arch)
+        counts[f"dense_{arch}_engine_slab"] = slab
+        counts[f"dense_{arch}_engine_paged_graphed"] = paged
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        log(f"[dense] {arch}: 4 layers at full width, k=d_head vs the dense "
+            "cache (decode; two-chunk prefill, slab and paged)")
+        worst = max(exact_phase(kernels, arch),
+                    chunk_exact_phase(kernels, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t4 = time.perf_counter()
+        log(f"[dense] {arch}: worst relative logit error {worst:.4f}; "
+            f"seconds: model {t1 - t0:.1f}, lockstep {t2 - t1:.1f}, engine "
+            f"{t3 - t2:.1f}, exact {t4 - t3:.1f}, all {t4 - t0:.1f}")
+    return counts
+
+
+def small_model(arch="llama3-8b"):
+    """The exactness phases' model: ``arch`` at full width, 4 layers,
     seeded weights, calibrated, with the full-retention SwanConfig (k =
     d_head).  Returns (cfg, api, params, projections, absorbed, swan)."""
     from repro_torch.configs import SwanConfig, get_config
@@ -1815,7 +2043,7 @@ def small_model():
     from repro_torch.models.registry import get_model
     from repro_torch.runtime.serve_loop import calibrate_swan
 
-    cfg = get_config("llama3-8b").replace(n_layers=4)
+    cfg = get_config(arch).replace(n_layers=4)
     api = get_model(cfg)
     params = api.init_params(cfg, 1, "cuda")
     proj = calibrate_swan(api, cfg, params,
@@ -1825,7 +2053,7 @@ def small_model():
     return cfg, api, params, proj, absorbed, full
 
 
-def chunk_exact_phase(kernels):
+def chunk_exact_phase(kernels, arch="llama3-8b"):
     """Full retention (k = d_head) makes winnowing lossless: a 512-token
     prompt prefilled as 2 chunks of 256 (slab, then paged) must give the
     dense monolithic prefill's last logits within the bf16 tolerance."""
@@ -1834,7 +2062,7 @@ def chunk_exact_phase(kernels):
     from repro_torch.launch.io import make_batch
     from repro_torch.runtime.page_pool import PagePool
 
-    cfg, api, params, proj, absorbed, full = small_model()
+    cfg, api, params, proj, absorbed, full = small_model(arch)
     n, C, max_seq = 512, ENGINE_CHUNK, 1024
     prompt = make_batch(cfg, 1, n, seed=5, device="cuda")
     dense_state = api.init_serve_state(cfg, None, 1, max_seq, "cuda")
@@ -1876,11 +2104,11 @@ def chunk_exact_phase(kernels):
     return worst
 
 
-def exact_phase(kernels):
+def exact_phase(kernels, arch="llama3-8b"):
     from repro_torch.launch.io import make_batch
     from repro_torch.runtime.serve_loop import ServeSession
 
-    cfg, _, params, proj, absorbed, full = small_model()
+    cfg, _, params, proj, absorbed, full = small_model(arch)
     s_swan = ServeSession(cfg, absorbed, swan=full, projections=proj,
                           max_seq=1024, batch=B, graphs=False, device="cuda")
     s_dense = ServeSession(cfg, params, max_seq=1024, batch=B, graphs=False,
@@ -2342,7 +2570,7 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
     "swan_prune": ("src/repro_torch/kernels/swan_prune/csrc/swan_prune.cu",
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
-PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs",
+PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs", "dense",
           "chunk_exact", "obs", "train")
 
 
@@ -2386,6 +2614,13 @@ def main(argv=None) -> int:
             if n:
                 by_path.setdefault(name, {})[path] = n
 
+    secs, mark = {"build": time.perf_counter() - t0}, [time.perf_counter()]
+
+    def lap(name):                      # the seconds of the phase just run
+        now = time.perf_counter()
+        secs[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     if "kernels" in phases:
         log("[kernels] swan_decode vs plain (B=4 Kv=8 G=4 dh=128 k=64 b=128 S=4096)")
         e, r = kernel_phase()
@@ -2408,41 +2643,60 @@ def main(argv=None) -> int:
             "and bf16)")
         e, rows["swan_prune"] = prune_phase()
         err["swan_prune"] = e["bf16"]
+        log(f"[kernels] B1-B4 at the dense family's other query groups, "
+            f"dh={DH} k={K} b={BUF}: {SERVED_GROUPS}")
+        e = served_groups_phase()
+        for name in ("swan_decode", "swan_decode_paged"):
+            err[name] = max(err[name], e["bf16"])
+        for name in ("swan_chunk_stats", "swan_chunk_stats_paged"):
+            err[name] = max(err[name], e["chunk_bf16"])
+        lap("kernels")
     if "bench" in phases:
         log("[bench] repro_torch.benchmarks.bench_kernels at full llama3-8b "
             "width (bf16)")
         record("bench", bench_phase(KERNELS))
+        lap("bench")
     model = (full_model() if {"serve", "engine", "graphs"} & set(phases)
              else None)
     if "serve" in phases:
         log("[serve] llama3-8b, SWAN k=64 b=128, lockstep ServeSession")
         record("serve", serve_phase(KERNELS, model))
+        lap("serve (with the model's init)")
     if "exact" in phases:
         log("[exact] 4 layers at full width, SWAN k=d_head vs dense cache")
         worst = exact_phase(KERNELS)
         log(f"  worst relative logit error {worst:.4f}")
+        lap("exact")
     if {"engine", "graphs"} & set(phases):
         log("[engine] llama3-8b, ServeEngine (4 slots, chunk 256 x 2 lanes), "
             "slab then paged, eager")
         counts_by_path, eager_runs = engine_phase(KERNELS, model)
         for path, counts in counts_by_path.items():
             record(path, counts)
+        lap("engine")
     if "graphs" in phases:
         log("[graphs] llama3-8b: the lockstep session eager and graphed")
-        record("graphs_lockstep", lockstep_graphs(KERNELS, model))
+        record("graphs_lockstep", lockstep_graphs(KERNELS, model)[0])
         log(f"[graphs] ServeEngine graphed, slab then paged, after "
             f"warmup(max_prompt_len={WARM_PROMPT})")
         counts_by_path, on_off = engine_graphs(KERNELS, model, eager_runs)
         for path, counts in counts_by_path.items():
             record(path, counts)
+        lap("graphs")
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    if "dense" in phases:
+        mark[0] = time.perf_counter()
+        for path, counts in dense_phase(KERNELS).items():
+            record(path, counts)
+        lap("dense")
     if "chunk_exact" in phases:
         log("[chunk_exact] 4 layers at full width, k=d_head: chunked prefill "
             "(slab, paged) vs the dense monolithic prefill")
         worst = chunk_exact_phase(KERNELS)
         log(f"  worst relative logit error {worst:.4f}")
+        lap("chunk_exact")
     if "obs" in phases:
         log("[obs] the launcher: llama3-8b, --engine --paged --prefill-chunk "
             "256, graphed without a warmup, with --metrics-out, --trace-out "
@@ -2450,9 +2704,11 @@ def main(argv=None) -> int:
         record("obs_launcher", obs_phase(KERNELS))
         if "graphs" in phases:
             log_on_off(on_off, smi)
+        lap("obs")
     if "train" in phases:
         record("quality", train_phase(KERNELS, smi))
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        lap("train")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; by phase (s): {secs}")
     if set(phases) != set(PHASES):
         return 0                        # a partial run prints no result
 

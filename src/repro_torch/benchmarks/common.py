@@ -47,13 +47,15 @@ from repro_torch.device import DeviceLike, f32_matmul, resolve_device
 L2_FLUSH_BYTES = 256 << 20       # > the H100's 50 MB L2: each launch starts cold
 
 
-def serve_model(smoke: bool, device: torch.device, calib_len: int = 32):
+def serve_model(smoke: bool, device: torch.device, calib_len: int = 32,
+                dtype: Optional[str] = None):
     """The serve benches' model on ``device``, from seeded weights with
     SWAN calibrated and absorbed: with ``smoke`` the reference benches'
     own float32 llama3-8b variant (2 layers, d_model 64), else llama3-8b
-    at full width in bf16.  On the card the kernel libraries are built
-    first, so that no timed call pays ``nvcc``.  Returns (cfg, params,
-    projections, absorbed)."""
+    at full width in bf16, or in ``dtype`` (params and activations) when
+    given.  On the card the kernel libraries are built first, so that no
+    timed call pays ``nvcc``.  Returns (cfg, params, projections,
+    absorbed)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.build import build_all
@@ -65,6 +67,8 @@ def serve_model(smoke: bool, device: torch.device, calib_len: int = 32):
     cfg = (get_smoke_config("llama3-8b").replace(
         dtype="float32", param_dtype="float32") if smoke
         else get_config("llama3-8b"))
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
     api = get_model(cfg)
     params = api.init_params(cfg, 0, device)
     pj = calibrate_swan(api, cfg, params,

@@ -1,5 +1,6 @@
 """Configuration dataclasses: the fields of ``repro.configs.base`` that the
-dense serving and training paths read, kept as the port's own copy."""
+dense serving and training paths read, and the reference's input shapes,
+kept as the port's own copy."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,9 +48,13 @@ class SwanConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Dense decoder-only transformer of the llama kind: RMSNorm, RoPE, no
-    biases, an untied output head.  The reference's other norm, bias and
-    embedding variants belong to families the port has not reached yet.
+    """Dense decoder-only transformer: RoPE, no biases, the norm of
+    ``norm`` (RMSNorm, LayerNorm or OLMo's non-parametric LayerNorm) and
+    an output head of its own or tied to the embedding
+    (``tie_embeddings``).  These cover the reference's dense family
+    (llama3-8b, yi-9b, olmo-1b).  The reference's bias, positional,
+    mixture-of-experts, Mamba, RWKV, encoder-decoder and sharding fields
+    come with the families that set them.
 
     The training fields are the reference's, with two left out: its
     ``scan_layers`` chooses how XLA compiles the layer stack, and the port
@@ -65,8 +70,10 @@ class ModelConfig:
     d_head: int
     d_ff: int
     vocab_size: int
+    norm: str = "rmsnorm"         # rmsnorm | layernorm | nonparam_ln
     act: str = "silu"             # silu -> SwiGLU MLP; gelu / relu_sq -> 2-matrix MLP
     rope_theta: float = 10000.0
+    tie_embeddings: bool = False  # the head is embed.T (no "head" leaf)
     dtype: str = "bfloat16"       # activation / cache dtype
     param_dtype: str = "bfloat16"
     # --- training -------------------------------------------------------
@@ -78,8 +85,33 @@ class ModelConfig:
     def q_group(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def layer_kind(self, idx: int) -> str:
+        """The mixer of layer ``idx``: attention on every layer of the
+        dense family."""
+        return "attn"
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's shape set for LM-family archs)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    "train",   4_096,   256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768,  32),
+    "decode_32k":  ShapeConfig("decode_32k",  "decode",  32_768,  128),
+    "long_500k":   ShapeConfig("long_500k",   "decode",  524_288, 1),
+}
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@ Carries params from ``get_model(cfg).init_params``, projections and caches
 of the JAX reference across to the port with the same nesting; stacked
 ``[L, ...]`` layer leaves stay stacked.  Any leaf that ``np.asarray``
 accepts works, so this module needs nothing of JAX.  ``bfloat16`` and
-``float8_e4m3fn`` numpy arrays (ml_dtypes) are moved bit for bit.
+``float8_e4m3fn`` numpy arrays (ml_dtypes) are moved bit for bit, and a
+0-d leaf (an optimizer's step counter) stays 0-d.  Empty dicts (the
+norms of ``nonparam_ln``) stay empty, and a tied tree (no ``head``) stays
+tied.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ _BIT_VIEWS = {
 
 
 def array_to_torch(a: Any, device: torch.device) -> torch.Tensor:
-    arr = np.ascontiguousarray(np.asarray(a))
+    arr = np.asarray(a, order="C")      # (ascontiguousarray makes 0-d 1-d)
     bits = _BIT_VIEWS.get(arr.dtype.name)
     if bits is None:
         t = torch.from_numpy(arr.copy())

@@ -12,6 +12,13 @@ concurrent prefill).
         --prefill-slots 2
     python -m repro_torch.launch.serve --arch llama3-8b --smoke \
         --ckpt-dir ckpt --swan --k 8 --buffer 8 --device cpu
+    python -m repro_torch.launch.serve --arch olmo-1b --smoke --swan \
+        --k 8 --buffer 8 --device cpu
+
+``--arch`` is any arch of the port's registry: llama3-8b, yi-9b (GQA, 8
+queries per kv head) or olmo-1b (MHA, non-parametric LayerNorm, tied
+embeddings), each at its full published configuration or, with
+``--smoke``, its small one.
 
 run on the card, where every dispatch replays a CUDA graph per shape
 bucket (``--engine --warmup`` captures the engine's whole graph family

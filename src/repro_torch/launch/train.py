@@ -4,8 +4,10 @@
         --steps 50 --batch 8 --seq 128 --device cpu [--data tokens.bin]
 
 trains the small configuration on the CPU; without ``--device cpu`` the
-run is on the card (``--arch llama3-8b`` without ``--smoke`` is the full
-configuration, which needs more memory than one card holds at 32 layers).
+run is on the card.  ``--arch`` is llama3-8b, yi-9b or olmo-1b (whose
+tied embedding takes the gradients of both its uses); without ``--smoke``
+each is its full configuration, which for llama3-8b and yi-9b needs more
+memory than one card holds with f32 AdamW moments.
 """
 from __future__ import annotations
 

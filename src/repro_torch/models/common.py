@@ -1,4 +1,4 @@
-"""Shared model building blocks: RMSNorm, RoPE, activations, initialisers.
+"""Shared model building blocks: norms, RoPE, activations, initialisers.
 
 Port of ``repro.models.common``.  Initialisers draw from an explicit
 ``torch.Generator`` with the reference's distributions (truncated normal
@@ -44,11 +44,38 @@ def embed_init_(out: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 # Normalisation
 # ---------------------------------------------------------------------------
 
-def apply_norm(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm (eps 1e-6) in fp32, cast back to the activation dtype."""
+def init_norm(cfg, lead=(), device=None) -> Params:
+    """A norm's parameters for ``cfg.norm`` (the reference's ``init_norm``),
+    each leaf [*lead, d_model] in ``cfg.param_dtype``: RMSNorm a scale of
+    ones, LayerNorm a scale of ones and a bias of zeros, non-parametric
+    LayerNorm (OLMo) nothing."""
+    shape = (*lead, cfg.d_model)
+    pdt = torch_dtype(cfg.param_dtype)
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.ones(shape, dtype=pdt, device=device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(shape, dtype=pdt, device=device),
+                "bias": torch.zeros(shape, dtype=pdt, device=device)}
+    if cfg.norm == "nonparam_ln":
+        return {}
+    raise ValueError(cfg.norm)
+
+
+def apply_norm(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Normalise in fp32 by ``cfg.norm`` and cast back to the activation
+    dtype: RMSNorm (eps 1e-6) times its scale; LayerNorm (eps 1e-5) times
+    its scale plus its bias, or, non-parametric, neither."""
     xf = x.float()
-    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
-    return (xf * p["scale"].float()).to(x.dtype)
+    if cfg.norm == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+        xf = xf * p["scale"].float()
+    else:                                           # layernorm / nonparam_ln
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + 1e-5)
+        if cfg.norm == "layernorm":
+            xf = xf * p["scale"].float() + p["bias"].float()
+    return xf.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,8 @@
-"""Model API of the port (the ``dense`` entry of ``repro.models.registry``)."""
+"""Model API of the port (the ``dense`` entry of ``repro.models.registry``).
+
+Every arch of the port's registry (llama3-8b, yi-9b, olmo-1b) runs through
+the one ``dense`` entry: the config's ``norm`` and ``tie_embeddings`` pick
+the norm and the output head inside ``models.transformer``."""
 from __future__ import annotations
 
 from dataclasses import dataclass

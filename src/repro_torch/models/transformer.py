@@ -31,7 +31,7 @@ from repro_torch.kernels.swan_decode.ops import (
     swan_decode_from_cache, swan_decode_paged_from_cache)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
-                                       torch_dtype)
+                                       init_norm, torch_dtype)
 from repro_torch.models.mlp import mlp_forward
 
 Params = Dict[str, Any]
@@ -44,7 +44,10 @@ Params = Dict[str, Any]
 def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device`` (the
     card by default), with the reference's init distributions.  Each
-    stacked leaf is allocated once and filled layer by layer."""
+    stacked leaf is allocated once and filled layer by layer.  Norms
+    follow ``cfg.norm`` (no leaves for ``nonparam_ln``); with
+    ``cfg.tie_embeddings`` there is no "head" leaf, as in the reference:
+    the head is ``embed.T``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -60,24 +63,23 @@ def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
             dense_init_(w[i], gen, scale)
         return w
 
-    def norm(*lead):
-        return {"scale": torch.ones((*lead, d), dtype=pdt, device=dev)}
-
     layers = {
-        "ln1": norm(L),
+        "ln1": init_norm(cfg, (L,), dev),
         "attn": {"wq": stacked(d, H * dh), "wk": stacked(d, Kv * dh),
                  "wv": stacked(d, Kv * dh),
                  "wo": stacked(H * dh, d, (H * dh) ** -0.5)},
-        "ln2": norm(L),
+        "ln2": init_norm(cfg, (L,), dev),
         "mlp": {},
     }
     if cfg.act == "silu":                    # SwiGLU: a gate beside w_up
         layers["mlp"]["w_gate"] = stacked(d, ff)
     layers["mlp"].update(w_up=stacked(d, ff),
                          w_down=stacked(ff, d, ff ** -0.5))
-    return {"embed": embed_init_(empty(V, d), gen), "layers": layers,
-            "ln_f": norm(),
-            "head": embed_init_(empty(d, V), gen)}   # the reference's embed.T
+    p = {"embed": embed_init_(empty(V, d), gen), "layers": layers,
+         "ln_f": init_norm(cfg, (), dev)}
+    if not cfg.tie_embeddings:
+        p["head"] = embed_init_(empty(d, V), gen)    # the reference's embed.T
+    return p
 
 
 def layer_params(p: Params, i: int) -> Params:
@@ -101,18 +103,22 @@ def _embed(p: Params, cfg, tokens: torch.Tensor
     return x, positions
 
 
-def _head(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return apply_norm(p["ln_f"], x) @ p["head"].to(x.dtype)
+def _head(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and output head; a tied head is a transposed VIEW of the
+    embedding (no copy: a captured graph reads the embedding itself), so
+    its gradient sums both uses."""
+    head = p["embed"].T if cfg.tie_embeddings else p["head"]
+    return apply_norm(p["ln_f"], cfg, x) @ head.to(x.dtype)
 
 
 def _layer_ffn(lp: Params, cfg, x: torch.Tensor) -> torch.Tensor:
-    return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["ln2"], x))
+    return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["ln2"], cfg, x))
 
 
 def _layer_qkv_forward(lp: Params, cfg, x: torch.Tensor,
                        positions: torch.Tensor):
     """Pre-norm block; also returns the block's post-RoPE q, k, v."""
-    h = apply_norm(lp["ln1"], x)
+    h = apply_norm(lp["ln1"], cfg, x)
     q, k, v = attn.project_qkv(lp["attn"], cfg, h, positions)
     o = attn.causal_attention(q, k, v)
     x = x + attn.output_proj(lp["attn"], o)
@@ -159,7 +165,7 @@ def lm_forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
         else _layer_forward
     for i in range(cfg.n_layers):
         x = body(layer_params(p, i), cfg, x, positions)
-    return _head(p, x)
+    return _head(p, cfg, x)
 
 
 def _logz_gold(logits: torch.Tensor, tokens: torch.Tensor):
@@ -352,7 +358,7 @@ def lm_prefill(p: Params, cfg, tokens: torch.Tensor, caches: Params,
                     else min(k, int(k_active)) for k in k_layers]
     for i in range(cfg.n_layers):
         lp, cache_l = layer_params(p, i), layer_cache(caches, i)
-        h = apply_norm(lp["ln1"], x)
+        h = apply_norm(lp["ln1"], cfg, x)
         if use_swan:
             h = _swan_layer_prefill(lp, projections["p_qk"][i], cache_l, cfg,
                                     swan, h, positions, k_layers[i],
@@ -368,7 +374,7 @@ def lm_prefill(p: Params, cfg, tokens: torch.Tensor, caches: Params,
         x = x.index_select(1, (true_len.long() - 1).reshape(1))
     else:
         x = x[:, int(true_len) - 1:int(true_len)]
-    return _head(p, x), caches
+    return _head(p, cfg, x), caches
 
 
 def _swan_layer_prefill_chunk(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
@@ -521,7 +527,7 @@ def lm_prefill_chunk_batched(p: Params, cfg, tokens: torch.Tensor,
     k_req = None if k_active is None else lane_vec(k_active)
     for i in range(cfg.n_layers):
         lp, cache_l = layer_params(p, i), layer_cache(caches, i)
-        h = apply_norm(lp["ln1"], x)
+        h = apply_norm(lp["ln1"], cfg, x)
         if use_swan:
             k_eff = (k_layers[i] if k_req is None
                      else torch.clamp(k_req, max=k_layers[i]))
@@ -534,7 +540,7 @@ def lm_prefill_chunk_batched(p: Params, cfg, tokens: torch.Tensor,
         x = _layer_ffn(lp, cfg, x + h)
     last = torch.clamp(lanes["true_len"] - 1, min=0)
     x = x[torch.arange(P, device=dev), last][:, None]      # last REAL token
-    return _head(p, x)[:, 0], caches
+    return _head(p, cfg, x)[:, 0], caches
 
 
 @torch.no_grad()
@@ -561,7 +567,7 @@ def lm_decode_step(p: Params, cfg, token: torch.Tensor, pos, caches: Params,
              else torch.as_tensor(k_active, device=x.device))
     for i in range(cfg.n_layers):
         lp, cache_l = layer_params(p, i), layer_cache(caches, i)
-        h = apply_norm(lp["ln1"], x)
+        h = apply_norm(lp["ln1"], cfg, x)
         if use_swan:
             k_eff = k_layers[i]
             if isinstance(k_active, int):
@@ -573,4 +579,4 @@ def lm_decode_step(p: Params, cfg, token: torch.Tensor, pos, caches: Params,
         else:
             h, _ = attn.attn_decode_dense(lp["attn"], cfg, h, pos, cache_l)
         x = _layer_ffn(lp, cfg, x + h)
-    return _head(p, x)[:, 0], caches
+    return _head(p, cfg, x)[:, 0], caches
