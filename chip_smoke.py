@@ -87,6 +87,18 @@ Phases, each of which must pass (any failure exits non-zero):
               capture's warm run); then 4 layers at full retention
               against the dense cache (decode; two-chunk prefill, slab and
               paged).  Seconds per part printed.
+   moe     — deepseek-moe-16b (28 layers, 64 routed experts, top-6, 2
+              shared) and qwen2-moe-a2.7b (24 layers, 60 routed, top-4, 4
+              shared, q/k/v biases seeded N(0, 0.02)), both d_model 2048
+              and 16/16 heads (G = 1), at full width and depth, bf16,
+              seeded weights, after the dense phase's models are freed:
+              the dense phase's lockstep, engine and full-retention checks
+              through the MoE FFN (``models.moe``).  The lockstep prefill
+              of 4 x 2048 tokens passes the 4096-assignment no-drop limit
+              (its capacity follows the doubled capacity factor); the
+              engine's chunk and decode dispatches and the full-retention
+              prompts stay under it, so nothing there is dropped.
+              Parameter counts, peak memory and seconds per part printed.
 9. chunk_exact — 4 layers at full retention: a prompt prefilled in two
               chunks (slab, paged) against the dense monolithic prefill.
 10. obs     — the launcher (``repro_torch.launch.serve.main``) serving
@@ -120,7 +132,7 @@ Phases, each of which must pass (any failure exits non-zero):
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
 that ran the kernel — the bench, the lockstep serve, the engines, graphed
-and eager, the dense phase's models, the quality benches — and
+and eager, the dense and MoE phases' models, the quality benches — and
 ``launches_by_path`` per path), and the result line
 ``{"ok": true, "device": {...}}``; the ``[done]`` line before them gives
 each phase's seconds.  Without a CUDA device it exits non-zero and prints
@@ -1029,11 +1041,23 @@ def bench_phase(kernels):
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
+def seeded_biases_(cfg, params, seed=0):
+    """Fill a ``qkv_bias`` config's q/k/v biases (zeros at init, as in the
+    reference) with seeded N(0, 0.02) values, so the bias and absorbed
+    b̂_v paths see non-zero values on the card."""
+    import torch
+    if not cfg.qkv_bias:
+        return
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name in ("bq", "bk", "bv"):
+        params["layers"]["attn"][name].normal_(0.0, 0.02, generator=gen)
+
+
 def full_model(arch="llama3-8b"):
-    """A model of the dense family (llama3-8b unless ``arch`` names
-    another) at full width and depth (bf16) from seeded weights, calibrated
+    """A model (llama3-8b unless ``arch`` names another) at full width and
+    depth (bf16) from seeded weights (and seeded q/k/v biases), calibrated
     and absorbed: (cfg, params, projections), shared by the serve and
-    engine phases (and, for yi-9b and olmo-1b, the dense phase)."""
+    engine phases (and the dense and MoE phases' models)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.io import make_batch
@@ -1044,15 +1068,23 @@ def full_model(arch="llama3-8b"):
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init_params(cfg, 0, "cuda")
+    seeded_biases_(cfg, params)
     projections = calibrate_swan(api, cfg, params,
                                  make_batch(cfg, 4, 64, seed=3, device="cuda"))
     params = api.absorb(params, cfg, projections)
     torch.cuda.synchronize()
+    m = cfg.moe
+    ffn = (f"d_ff {cfg.d_ff}" if m is None else
+           f"{m.n_routed} routed experts (top-{m.top_k}) + {m.n_shared} "
+           f"shared of width {m.d_expert}")
     log(f"  init + calibrate + absorb: {time.perf_counter() - t0:.1f} s "
         f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {ffn}, vocab "
         f"{cfg.vocab_size}, {cfg.norm}{', tied' if cfg.tie_embeddings else ''}"
-        f", {cfg.dtype})")
+        f"{', q/k/v biases' if cfg.qkv_bias else ''}, {cfg.dtype}; "
+        f"{cfg.n_params() / 1e9:.3f} B params, "
+        f"{cfg.n_active_params() / 1e9:.3f} B active; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
     return cfg, params, projections
 
 
@@ -1472,12 +1504,13 @@ def check_executions(label, window, attempts=3):
     check(False, f"[{label}] no traced window saw the expected executions")
 
 
-def lockstep_graphs(kernels, model, profile=True):
+def lockstep_graphs(kernels, model, profile=True, summary=None):
     """The lockstep session eager and graphed in one call: the first
     prefill and decode logits, the generated tokens, decode ms/step; with
     ``profile``, a profile of graphed decode steps.  Each session
     generates once before the timed run, so the timed graphed run only
-    replays."""
+    replays.  ``summary`` (a dict) receives each mode's numbers and the
+    graphed session's cache report."""
     import torch
     from repro_torch.configs import SwanConfig
     from repro_torch.launch.io import make_batch
@@ -1528,6 +1561,7 @@ def lockstep_graphs(kernels, model, profile=True):
         if mode == "graphed":
             g = sess._graphs
             rep = sess.cache_report()
+            res[mode]["report"] = rep
             log(f"  [lockstep graphed] graphs {dict(g.captures)}, replays "
                 f"{dict(g.replays)}, capture {g.capture_s:.2f} s; cache "
                 f"[{rep['mode']}] {rep['bytes'] / 1e6:.1f} MB vs dense "
@@ -1561,6 +1595,8 @@ def lockstep_graphs(kernels, model, profile=True):
     check(g["decode_ms"] <= GRAPH_SPEEDUP * e["decode_ms"],
           f"graphed lockstep {g['decode_ms']:.2f} ms/step is not under "
           f"{GRAPH_SPEEDUP} x eager {e['decode_ms']:.2f}")
+    if summary is not None:
+        summary.update(res)
     return g["launches"], e["launches"]
 
 
@@ -2034,9 +2070,118 @@ def dense_phase(kernels):
     return counts
 
 
-def small_model(arch="llama3-8b"):
+MOE_ARCHS = ("deepseek-moe-16b", "qwen2-moe-a2.7b")
+EXACT_PROMPT = 512              # exact_phase's and chunk_exact_phase's prompt
+
+
+def moe_phase(kernels):
+    """deepseek-moe-16b and qwen2-moe-a2.7b at full width and depth, bf16,
+    seeded weights (qwen's biases seeded non-zero), through the dense
+    phase's checks: the lockstep session eager and graphed, the engine
+    trace eager on the slab and graphed at first use on the paged pool,
+    then 4 layers at full retention against the dense cache, its decode
+    batch cut so that the monolithic prefill stays under the MoE FFN's
+    no-drop limit (T·K <= 4096: nothing dropped, so the comparison is
+    exact but for rounding).  That comparison runs in float32: in bf16
+    the discrete routing turns rounding into moved experts
+    (``bf16_routing`` reports it).  Returns the launch counts by path."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    counts = {}
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        log(f"[moe] {arch}: full width and depth, SWAN k={K} b={BUF}")
+        model = full_model(arch)
+        cfg = model[0]
+        Kt = cfg.moe.top_k
+
+        def cap(what, T):
+            C = moe_mod.capacity(cfg, T, True)
+            rule = "no drops" if C == T * Kt else "doubled capacity factor"
+            return f"{what} T·K = {T * Kt} -> C = {C} ({rule})"
+        chunk = ENGINE_LANES * ENGINE_CHUNK
+        log(f"  [{arch}] expert capacity (serving): "
+            f"{cap(f'lockstep prefill {B}x{PROMPT}', B * PROMPT)}; "
+            f"{cap(f'engine chunk {ENGINE_LANES}x{ENGINE_CHUNK}', chunk)}; "
+            f"{cap(f'decode {B}', B)}")
+        t1 = time.perf_counter()
+        lock = {}
+        graphed, eager = lockstep_graphs(kernels, model, profile=False,
+                                         summary=lock)
+        counts[f"moe_{arch}_lockstep_eager"] = eager
+        counts[f"moe_{arch}_lockstep_graphed"] = graphed
+        t2 = time.perf_counter()
+        slab, paged = dense_engine(kernels, model, arch)
+        counts[f"moe_{arch}_engine_slab"] = slab
+        counts[f"moe_{arch}_engine_paged_graphed"] = paged
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        batch = max(b for b in range(1, B + 1)
+                    if b * EXACT_PROMPT * Kt <= moe_mod.NO_DROP_MAX_ASSIGNMENTS)
+        log(f"[moe] {arch}: 4 layers at full width in float32, k=d_head vs "
+            f"the dense cache (decode at batch {batch}: T·K = "
+            f"{batch * EXACT_PROMPT * Kt}; two-chunk prefill of "
+            f"{EXACT_PROMPT}: T·K = {EXACT_PROMPT * Kt}, slab and paged)")
+        worst = max(exact_phase(kernels, arch, batch=batch, dtype="float32"),
+                    chunk_exact_phase(kernels, arch, dtype="float32"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        bf16 = bf16_routing(arch, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t4 = time.perf_counter()
+        e, g = lock["eager"], lock["graphed"]
+        rep = g["report"]
+        log(f"[moe] {arch}: {cfg.n_params() / 1e9:.3f} B params "
+            f"({cfg.n_active_params() / 1e9:.3f} B active); lockstep decode "
+            f"graphed {g['decode_ms']:.2f} / eager {e['decode_ms']:.2f} "
+            f"ms/step; prefill {B}x{PROMPT} graphed {g['prefill_ms']:.1f} / "
+            f"eager {e['prefill_ms']:.1f} ms; device memory peak graphed "
+            f"{g['peak_gib']:.2f} / eager {e['peak_gib']:.2f} GiB; cache "
+            f"(Eq. 1) SWAN {rep['bytes'] / 1e6:.1f} MB vs dense "
+            f"{rep['dense_bytes'] / 1e6:.1f} MB ({rep['saving']:.1%} "
+            f"saving); full retention vs dense: worst relative logit error "
+            f"{worst:.2e} (float32), {bf16:.4f} (bf16, reported); seconds: "
+            f"model {t1 - t0:.1f}, lockstep {t2 - t1:.1f}, engine "
+            f"{t3 - t2:.1f}, exact {t4 - t3:.1f}, all {t4 - t0:.1f}")
+    return counts
+
+
+def bf16_routing(arch, batch):
+    """The exact phase's prefill in bf16, reported and not held to the
+    tolerance: the router's top-k is discrete, so rounding that differs
+    between the dense and the SWAN attention moves a token's K-th expert,
+    and that token's FFN output by its gate.  Logs the share of tokens
+    routed differently per layer; returns the worst relative error of the
+    last logits."""
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    cfg, _, params, proj, absorbed, full = small_model(arch)
+    kw = dict(max_seq=1024, batch=batch, graphs=False, device="cuda")
+    s_swan = ServeSession(cfg, absorbed, swan=full, projections=proj, **kw)
+    s_dense = ServeSession(cfg, params, **kw)
+    prompt = make_batch(cfg, batch, EXACT_PROMPT, seed=5, device="cuda")
+    with RouteRecorder() as r_dense:
+        ld = s_dense.prefill(prompt).float()
+    with RouteRecorder() as r_swan:
+        ls = s_swan.prefill(prompt).float()
+    scale = max(1.0, ld.abs().max().item())
+    err = (ls - ld).abs().max().item()
+    log(f"  [bf16, reported] prefill {batch}x{EXACT_PROMPT}: max|swan - "
+        f"dense| {err:.4f} (max|dense| {scale:.2f}: {err / scale:.4f} "
+        f"relative); argmax agrees: "
+        f"{bool((ls.argmax(-1) == ld.argmax(-1)).all())}; tokens routed "
+        f"differently by layer: {route_flips(r_dense, r_swan)}")
+    return err / scale
+
+
+def small_model(arch="llama3-8b", dtype=None):
     """The exactness phases' model: ``arch`` at full width, 4 layers,
-    seeded weights, calibrated, with the full-retention SwanConfig (k =
+    seeded weights (params and activations in ``dtype``, the config's
+    bf16 by default), calibrated, with the full-retention SwanConfig (k =
     d_head).  Returns (cfg, api, params, projections, absorbed, swan)."""
     from repro_torch.configs import SwanConfig, get_config
     from repro_torch.launch.io import make_batch
@@ -2044,8 +2189,11 @@ def small_model(arch="llama3-8b"):
     from repro_torch.runtime.serve_loop import calibrate_swan
 
     cfg = get_config(arch).replace(n_layers=4)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
     api = get_model(cfg)
     params = api.init_params(cfg, 1, "cuda")
+    seeded_biases_(cfg, params, seed=1)
     proj = calibrate_swan(api, cfg, params,
                           make_batch(cfg, 4, 64, seed=3, device="cuda"))
     absorbed = api.absorb(params, cfg, proj)
@@ -2053,17 +2201,18 @@ def small_model(arch="llama3-8b"):
     return cfg, api, params, proj, absorbed, full
 
 
-def chunk_exact_phase(kernels, arch="llama3-8b"):
+def chunk_exact_phase(kernels, arch="llama3-8b", dtype=None):
     """Full retention (k = d_head) makes winnowing lossless: a 512-token
     prompt prefilled as 2 chunks of 256 (slab, then paged) must give the
-    dense monolithic prefill's last logits within the bf16 tolerance."""
+    dense monolithic prefill's last logits within the bf16 tolerance
+    (``dtype`` as in ``small_model``)."""
     import numpy as np
     import torch
     from repro_torch.launch.io import make_batch
     from repro_torch.runtime.page_pool import PagePool
 
-    cfg, api, params, proj, absorbed, full = small_model(arch)
-    n, C, max_seq = 512, ENGINE_CHUNK, 1024
+    cfg, api, params, proj, absorbed, full = small_model(arch, dtype)
+    n, C, max_seq = EXACT_PROMPT, ENGINE_CHUNK, 1024
     prompt = make_batch(cfg, 1, n, seed=5, device="cuda")
     dense_state = api.init_serve_state(cfg, None, 1, max_seq, "cuda")
     want, _ = api.prefill(params, cfg, prompt, dense_state)
@@ -2104,17 +2253,57 @@ def chunk_exact_phase(kernels, arch="llama3-8b"):
     return worst
 
 
-def exact_phase(kernels, arch="llama3-8b"):
+class RouteRecorder:
+    """While active, keeps the expert set each ``models.moe.route`` call
+    chose for each token (sorted, on the host): a diagnostic that reads
+    values back, for eager runs only."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._route = [], moe.route
+
+        def route(*args, **kw):
+            out = self._route(*args, **kw)
+            self.calls.append(out[3].sort(dim=-1).values.cpu())
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+def route_flips(a, b):
+    """Per layer, the share of tokens whose expert set differs between two
+    recorded runs of the same prompt."""
+    return [float((x != y).any(dim=-1).float().mean()) for x, y in
+            zip(a.calls, b.calls)]
+
+
+def exact_phase(kernels, arch="llama3-8b", batch=B, dtype=None):
+    """Full retention (k = d_head) against the dense cache: ``batch``
+    prompts of 512 tokens, then 8 decode steps; the logits agree within
+    the bf16 tolerance at every step (``dtype`` as in ``small_model``).
+    For a MoE model also the share of prefill tokens routed differently
+    by the two runs, per layer."""
     from repro_torch.launch.io import make_batch
     from repro_torch.runtime.serve_loop import ServeSession
 
-    cfg, _, params, proj, absorbed, full = small_model(arch)
+    cfg, _, params, proj, absorbed, full = small_model(arch, dtype)
     s_swan = ServeSession(cfg, absorbed, swan=full, projections=proj,
-                          max_seq=1024, batch=B, graphs=False, device="cuda")
-    s_dense = ServeSession(cfg, params, max_seq=1024, batch=B, graphs=False,
-                           device="cuda")
-    prompt = make_batch(cfg, B, 512, seed=5, device="cuda")
-    ld, ls = s_dense.prefill(prompt), s_swan.prefill(prompt)
+                          max_seq=1024, batch=batch, graphs=False,
+                          device="cuda")
+    s_dense = ServeSession(cfg, params, max_seq=1024, batch=batch,
+                           graphs=False, device="cuda")
+    prompt = make_batch(cfg, batch, EXACT_PROMPT, seed=5, device="cuda")
+    with RouteRecorder() as r_dense:
+        ld = s_dense.prefill(prompt)
+    with RouteRecorder() as r_swan:
+        ls = s_swan.prefill(prompt)
+    if cfg.moe is not None:
+        log(f"  [{cfg.dtype}] prefill tokens routed differently, dense vs "
+            f"SWAN, by layer: {route_flips(r_dense, r_swan)}")
     kern = {k.name: k for k in kernels}["swan_decode"]
     before = kern.launches
     worst = 0.0
@@ -2571,7 +2760,7 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
 PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs", "dense",
-          "chunk_exact", "obs", "train")
+          "moe", "chunk_exact", "obs", "train")
 
 
 def main(argv=None) -> int:
@@ -2691,6 +2880,11 @@ def main(argv=None) -> int:
         for path, counts in dense_phase(KERNELS).items():
             record(path, counts)
         lap("dense")
+    if "moe" in phases:
+        mark[0] = time.perf_counter()
+        for path, counts in moe_phase(KERNELS).items():
+            record(path, counts)
+        lap("moe")
     if "chunk_exact" in phases:
         log("[chunk_exact] 4 layers at full width, k=d_head: chunked prefill "
             "(slab, paged) vs the dense monolithic prefill")

@@ -1,16 +1,22 @@
 """Architecture registry of the port and the config dataclasses.  The
 port has the reference's dense family: llama3-8b (the paper's own
 evaluation model), yi-9b (GQA with G = 8) and olmo-1b (MHA, non-parametric
-LayerNorm, tied embeddings); llama3-405b waits for sharding, the other
+LayerNorm, tied embeddings); and its ``moe`` family: deepseek-moe-16b
+(64 routed experts, top-6, 2 shared) and qwen2-moe-a2.7b (60 routed,
+top-4, 4 shared, q/k/v biases).  llama3-405b waits for sharding, the other
 families for their model code."""
 from __future__ import annotations
 
-from repro_torch.configs import llama3_8b, olmo_1b, yi_9b
+from repro_torch.configs import (deepseek_moe_16b, llama3_8b, olmo_1b,
+                                 qwen2_moe_a2_7b, yi_9b)
 from repro_torch.configs.base import (SHAPES, ModelConfig,  # noqa: F401
-                                      OptimizerConfig, ShapeConfig,
-                                      SwanConfig, TrainConfig)
+                                      MoEConfig, OptimizerConfig,
+                                      ShapeConfig, SwanConfig, TrainConfig)
 
-_ARCHS = {"llama3-8b": llama3_8b, "olmo-1b": olmo_1b, "yi-9b": yi_9b}
+# the reference registry's order
+_ARCHS = {"deepseek-moe-16b": deepseek_moe_16b,
+          "qwen2-moe-a2.7b": qwen2_moe_a2_7b, "llama3-8b": llama3_8b,
+          "olmo-1b": olmo_1b, "yi-9b": yi_9b}
 ARCH_IDS = list(_ARCHS)
 
 

@@ -1,6 +1,6 @@
 """Configuration dataclasses: the fields of ``repro.configs.base`` that the
-dense serving and training paths read, and the reference's input shapes,
-kept as the port's own copy."""
+dense and MoE serving and training paths read, and the reference's input
+shapes, kept as the port's own copy."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,14 +47,34 @@ class SwanConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN: routed experts (top-k of them per token,
+    with a token capacity per expert) and always-on shared experts.  The
+    reference's ``shard_experts`` (expert parallelism over a mesh axis) is
+    left out: the port has no sharding yet."""
+    n_routed: int                 # number of routed experts
+    n_shared: int                 # number of always-on shared experts
+    top_k: int                    # experts activated per token
+    d_expert: int                 # hidden dim of each expert FFN
+    capacity_factor: float = 1.25  # token capacity per expert = cf * tokens * top_k / E
+    router_aux_weight: float = 0.01  # load-balance auxiliary loss weight
+    router_z_weight: float = 1e-3    # router logit z-loss weight
+    moe_every: int = 1            # MoE FFN on layers where (idx % moe_every == moe_offset)
+    moe_offset: int = 0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Dense decoder-only transformer: RoPE, no biases, the norm of
-    ``norm`` (RMSNorm, LayerNorm or OLMo's non-parametric LayerNorm) and
-    an output head of its own or tied to the embedding
-    (``tie_embeddings``).  These cover the reference's dense family
-    (llama3-8b, yi-9b, olmo-1b).  The reference's bias, positional,
-    mixture-of-experts, Mamba, RWKV, encoder-decoder and sharding fields
-    come with the families that set them.
+    """Decoder-only transformer: RoPE, optional q/k/v biases
+    (``qkv_bias``), the norm of ``norm`` (RMSNorm, LayerNorm or OLMo's
+    non-parametric LayerNorm), an output head of its own or tied to the
+    embedding (``tie_embeddings``), and a mixture-of-experts FFN on the
+    layers ``ffn_kind`` names (``moe``).  These cover the reference's
+    dense family (llama3-8b, yi-9b, olmo-1b) and its ``moe`` family
+    (deepseek-moe-16b, qwen2-moe-a2.7b).  The reference's other bias,
+    positional, Mamba, RWKV, encoder-decoder and sharding fields
+    (``tp_style`` among them) come with the families and the sharding that
+    set them.
 
     The training fields are the reference's, with two left out: its
     ``scan_layers`` chooses how XLA compiles the layer stack, and the port
@@ -62,7 +82,7 @@ class ModelConfig:
     ``OptimizerConfig.state_dtype``, the one field the port reads for the
     AdamW moments' dtype."""
     name: str
-    family: str                   # only "dense" is ported
+    family: str                   # dense | moe (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,8 +92,10 @@ class ModelConfig:
     vocab_size: int
     norm: str = "rmsnorm"         # rmsnorm | layernorm | nonparam_ln
     act: str = "silu"             # silu -> SwiGLU MLP; gelu / relu_sq -> 2-matrix MLP
+    qkv_bias: bool = False        # bq/bk/bv added before RoPE (Qwen)
     rope_theta: float = 10000.0
     tie_embeddings: bool = False  # the head is embed.T (no "head" leaf)
+    moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"       # activation / cache dtype
     param_dtype: str = "bfloat16"
     # --- training -------------------------------------------------------
@@ -87,8 +109,49 @@ class ModelConfig:
 
     def layer_kind(self, idx: int) -> str:
         """The mixer of layer ``idx``: attention on every layer of the
-        dense family."""
+        ported families."""
         return "attn"
+
+    def ffn_kind(self, idx: int) -> str:
+        """The FFN of layer ``idx``: "moe" where ``moe`` puts its experts,
+        "dense" (an MLP of width ``d_ff``) elsewhere."""
+        if self.moe is None:
+            return "dense"
+        return ("moe" if idx % self.moe.moe_every == self.moe.moe_offset
+                else "dense")
+
+    def n_params(self) -> int:
+        """Analytical parameter count (embedding, blocks, head), the
+        reference's formula for the ported families."""
+        return self._count_params(active=False)
+
+    def n_active_params(self) -> int:
+        """Parameters a token passes through: a MoE layer counts its top-k
+        routed experts, its shared experts and its router."""
+        return self._count_params(active=True)
+
+    def _count_params(self, active: bool) -> int:
+        n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        for idx in range(self.n_layers):
+            n += self._attn_params()
+            if self.ffn_kind(idx) == "dense":
+                n += self._mlp_params(self.d_ff)
+            else:
+                m = self.moe
+                experts = (m.top_k if active else m.n_routed) + m.n_shared
+                n += experts * self._mlp_params(m.d_expert)
+                n += self.d_model * m.n_routed          # router
+        return n
+
+    def _attn_params(self) -> int:
+        d, H, Kv, dh = self.d_model, self.n_heads, self.n_kv_heads, self.d_head
+        n = d * H * dh + 2 * d * Kv * dh + H * dh * d
+        if self.qkv_bias:
+            n += H * dh + 2 * Kv * dh
+        return n
+
+    def _mlp_params(self, ff: int) -> int:
+        return (3 if self.act == "silu" else 2) * self.d_model * ff
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -16,9 +16,11 @@ concurrent prefill).
         --k 8 --buffer 8 --device cpu
 
 ``--arch`` is any arch of the port's registry: llama3-8b, yi-9b (GQA, 8
-queries per kv head) or olmo-1b (MHA, non-parametric LayerNorm, tied
-embeddings), each at its full published configuration or, with
-``--smoke``, its small one.
+queries per kv head), olmo-1b (MHA, non-parametric LayerNorm, tied
+embeddings), deepseek-moe-16b or qwen2-moe-a2.7b (mixture-of-experts
+FFNs; qwen2 with q/k/v biases), each at its full published configuration
+or, with ``--smoke``, its small one.  ``--pool-pages`` (the reference's
+flag) sizes the paged pool below the full reservation.
 
 run on the card, where every dispatch replays a CUDA graph per shape
 bucket (``--engine --warmup`` captures the engine's whole graph family
@@ -87,7 +89,7 @@ def main(argv=None):
                          "live tokens)")
     ap.add_argument("--page-size", type=int, default=64,
                     help="paged: token positions per page")
-    ap.add_argument("--n-pages", type=int, default=None,
+    ap.add_argument("--pool-pages", type=int, default=None,
                     help="paged: physical pages in the shared pool "
                          "(default: full reservation; smaller over-commits)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
@@ -229,7 +231,8 @@ def _run_engine(cfg, params, swan, projections, args, device,
     eng = ServeEngine(cfg, params, swan=swan, projections=projections,
                       max_seq=args.max_seq, n_slots=args.batch,
                       paged=args.paged, page_size=args.page_size,
-                      n_pages=args.n_pages, prefill_chunk=args.prefill_chunk,
+                      n_pages=args.pool_pages,
+                      prefill_chunk=args.prefill_chunk,
                       prefill_slots=args.prefill_slots,
                       prefill_budget=args.prefill_budget,
                       pool_grow=args.pool_grow, admission=args.admission,

@@ -4,10 +4,12 @@
         --steps 50 --batch 8 --seq 128 --device cpu [--data tokens.bin]
 
 trains the small configuration on the CPU; without ``--device cpu`` the
-run is on the card.  ``--arch`` is llama3-8b, yi-9b or olmo-1b (whose
-tied embedding takes the gradients of both its uses); without ``--smoke``
-each is its full configuration, which for llama3-8b and yi-9b needs more
-memory than one card holds with f32 AdamW moments.
+run is on the card.  ``--arch`` is llama3-8b, yi-9b, olmo-1b (whose
+tied embedding takes the gradients of both its uses), deepseek-moe-16b
+or qwen2-moe-a2.7b (whose loss adds the experts' load-balance and router
+z-losses); without ``--smoke`` each is its full configuration, which for
+all but olmo-1b needs more memory than one card holds with f32 AdamW
+moments.
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ Port of ``repro.models.attention``: projections, plain and blocked
 against a dense cache.  SWAN decode lives in
 ``repro_torch.core.swan_attention``.
 
-Parameter layout (per layer, no biases):
+Parameter layout (per layer):
   wq: [d, H*dh]   wk: [d, Kv*dh]   wv: [d, Kv*dh]   wo: [H*dh, d]
+  (+ bq: [H*dh], bk/bv: [Kv*dh] with ``cfg.qkv_bias``; no output bias)
 """
 from __future__ import annotations
 
@@ -26,15 +27,16 @@ ATTN_BLOCK = 512              # kv block for blocked attention
 
 def project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> q [B, S, H, dh], k/v [B, S, Kv, dh]; RoPE applied."""
+    """x: [B, S, d] -> q [B, S, H, dh], k/v [B, S, Kv, dh]; the biases
+    (when the params hold them) are added before RoPE."""
     B, S, _ = x.shape
     H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = apply_rope((x @ p["wq"]).reshape(B, S, H, dh), positions,
-                   cfg.rope_theta)
-    k = apply_rope((x @ p["wk"]).reshape(B, S, Kv, dh), positions,
-                   cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(B, S, Kv, dh)
-    return q, k, v
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(q.reshape(B, S, H, dh), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(B, S, Kv, dh), positions, cfg.rope_theta)
+    return q, k, v.reshape(B, S, Kv, dh)
 
 
 def output_proj(p: Params, o: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""Model API of the port (the ``dense`` entry of ``repro.models.registry``).
+"""Model API of the port (the ``dense`` and ``moe`` entries of
+``repro.models.registry``).
 
-Every arch of the port's registry (llama3-8b, yi-9b, olmo-1b) runs through
-the one ``dense`` entry: the config's ``norm`` and ``tie_embeddings`` pick
-the norm and the output head inside ``models.transformer``."""
+Both families run through the same transformer adapters, as in the
+reference: the dense archs (llama3-8b, yi-9b, olmo-1b), whose ``norm`` and
+``tie_embeddings`` pick the norm and the output head, and the MoE archs
+(deepseek-moe-16b, qwen2-moe-a2.7b), whose ``moe`` puts the experts of
+``models.moe`` in place of the MLP."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -28,8 +31,10 @@ class ModelApi:
 
     def loss(self, p, cfg, batch):
         """(loss, {"nll", "aux", "z"}) of ``batch["tokens"]``, the
-        reference's ``ModelApi.loss``; differentiable in ``p``."""
-        return tfm.xent_loss(self.forward(p, cfg, batch), batch["tokens"])
+        reference's ``ModelApi.loss`` (the MoE aux loss included);
+        differentiable in ``p``."""
+        logits, aux = tfm.lm_forward_aux(p, cfg, batch["tokens"])
+        return tfm.xent_loss(logits, batch["tokens"], aux)
 
 
 def _forward(p, cfg, batch):
@@ -55,11 +60,11 @@ def _collect(p, cfg, batch):
     return tfm.collect_qkv(p, cfg, batch["tokens"])
 
 
-_FAMILIES = {
-    "dense": ModelApi(tfm.init_lm_params, _forward, tfm.init_caches, _prefill,
-                      tfm.lm_decode_step, _collect, tfm.absorb_swan,
-                      tfm.init_paged_caches, _prefill_chunk),
-}
+_TRANSFORMER = ModelApi(tfm.init_lm_params, _forward, tfm.init_caches,
+                        _prefill, tfm.lm_decode_step, _collect,
+                        tfm.absorb_swan, tfm.init_paged_caches,
+                        _prefill_chunk)
+_FAMILIES = {"dense": _TRANSFORMER, "moe": _TRANSFORMER}
 
 
 def get_model(cfg) -> ModelApi:

@@ -1,7 +1,8 @@
-"""Decoder-only transformer LM, dense family: the training forward (with
-remat) and loss, SWAN calibration capture and absorption, and serving
-(prefill, batched chunked prefill and decode over a dense cache or a SWAN
-hybrid cache, slab or paged).
+"""Decoder-only transformer LM, dense and MoE families: the training
+forward (with remat, and the MoE layers' auxiliary losses) and loss, SWAN
+calibration capture and absorption, and serving (prefill, batched chunked
+prefill and decode over a dense cache or a SWAN hybrid cache, slab or
+paged).
 
 Port of ``repro.models.transformer``.  Parameters are nested dicts with
 stacked ``[L, ...]`` layer leaves, as in the reference; its ``scan`` over
@@ -30,6 +31,7 @@ from repro_torch.kernels.swan_chunk.ops import (chunk_stats_from_pool,
 from repro_torch.kernels.swan_decode.ops import (
     swan_decode_from_cache, swan_decode_paged_from_cache)
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
                                        init_norm, torch_dtype)
 from repro_torch.models.mlp import mlp_forward
@@ -47,8 +49,15 @@ def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     stacked leaf is allocated once and filled layer by layer.  Norms
     follow ``cfg.norm`` (no leaves for ``nonparam_ln``); with
     ``cfg.tie_embeddings`` there is no "head" leaf, as in the reference:
-    the head is ``embed.T``."""
+    the head is ``embed.T``.  ``cfg.qkv_bias`` adds zero q/k/v biases;
+    layers whose ``ffn_kind`` is "moe" hold an "experts" subtree in place
+    of "mlp" (``models.moe``).  The stacked layout needs one FFN kind on
+    every layer, as the reference's does."""
     dev = resolve_device(device)
+    kinds = {cfg.ffn_kind(i) for i in range(cfg.n_layers)}
+    if len(kinds) > 1:
+        raise ValueError(f"{cfg.name}: the stacked layer layout needs one "
+                         f"FFN kind on every layer, got {sorted(kinds)}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -69,12 +78,20 @@ def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
                  "wv": stacked(d, Kv * dh),
                  "wo": stacked(H * dh, d, (H * dh) ** -0.5)},
         "ln2": init_norm(cfg, (L,), dev),
-        "mlp": {},
     }
-    if cfg.act == "silu":                    # SwiGLU: a gate beside w_up
-        layers["mlp"]["w_gate"] = stacked(d, ff)
-    layers["mlp"].update(w_up=stacked(d, ff),
-                         w_down=stacked(ff, d, ff ** -0.5))
+    if cfg.qkv_bias:
+        layers["attn"].update(
+            bq=torch.zeros((L, H * dh), dtype=pdt, device=dev),
+            bk=torch.zeros((L, Kv * dh), dtype=pdt, device=dev),
+            bv=torch.zeros((L, Kv * dh), dtype=pdt, device=dev))
+    if kinds == {"moe"}:
+        layers["experts"] = moe_mod.init_moe_params(cfg, L, gen, dev)
+    else:
+        layers["mlp"] = {}
+        if cfg.act == "silu":                # SwiGLU: a gate beside w_up
+            layers["mlp"]["w_gate"] = stacked(d, ff)
+        layers["mlp"].update(w_up=stacked(d, ff),
+                             w_down=stacked(ff, d, ff ** -0.5))
     p = {"embed": embed_init_(empty(V, d), gen), "layers": layers,
          "ln_f": init_norm(cfg, (), dev)}
     if not cfg.tie_embeddings:
@@ -112,22 +129,38 @@ def _head(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_ffn(lp: Params, cfg, x: torch.Tensor) -> torch.Tensor:
-    return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["ln2"], cfg, x))
+    """The serving FFN: a MoE layer dispatches without drops
+    (``no_drop=True``), so prefill, chunks and decode agree."""
+    h = apply_norm(lp["ln2"], cfg, x)
+    if "experts" in lp:
+        return x + moe_mod.moe_forward(lp["experts"], cfg, h, no_drop=True,
+                                       with_aux=False)[0]
+    return x + mlp_forward(lp["mlp"], cfg, h)
 
 
 def _layer_qkv_forward(lp: Params, cfg, x: torch.Tensor,
                        positions: torch.Tensor):
-    """Pre-norm block; also returns the block's post-RoPE q, k, v."""
+    """Pre-norm block of the training forward: returns (x, the layer's
+    MoE aux loss (0 for an MLP layer), its post-RoPE (q, k, v)).  A MoE
+    layer drops past the capacity factor, as the reference's training
+    forward does."""
     h = apply_norm(lp["ln1"], cfg, x)
     q, k, v = attn.project_qkv(lp["attn"], cfg, h, positions)
     o = attn.causal_attention(q, k, v)
     x = x + attn.output_proj(lp["attn"], o)
-    return _layer_ffn(lp, cfg, x), (q, k, v)
+    h = apply_norm(lp["ln2"], cfg, x)
+    if "experts" in lp:
+        h, aux = moe_mod.moe_forward(lp["experts"], cfg, h)
+        aux = aux["moe_load_balance"] + aux["moe_router_z"]
+    else:
+        h = mlp_forward(lp["mlp"], cfg, h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux, (q, k, v)
 
 
 def _layer_forward(lp: Params, cfg, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    return _layer_qkv_forward(lp, cfg, x, positions)[0]
+                   positions: torch.Tensor):
+    return _layer_qkv_forward(lp, cfg, x, positions)[:2]
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -156,16 +189,26 @@ def _remat(body, cfg):
                                          **kw)
 
 
-def lm_forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] (the dense family has no aux loss).
-    Differentiable in ``p``; with ``cfg.remat``, under autograd, each layer
-    is recomputed in the backward."""
+def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S, V], the MoE layers' summed aux loss
+    (0 for the dense family)).  Differentiable in ``p``; with
+    ``cfg.remat``, under autograd, each layer is recomputed in the
+    backward."""
     x, positions = _embed(p, cfg, tokens)
     body = _remat(_layer_forward, cfg) if torch.is_grad_enabled() \
         else _layer_forward
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x = body(layer_params(p, i), cfg, x, positions)
-    return _head(p, cfg, x)
+        x, a = body(layer_params(p, i), cfg, x, positions)
+        aux = aux + a
+    return _head(p, cfg, x), aux
+
+
+def lm_forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] (``lm_forward_aux`` without the
+    aux loss)."""
+    return lm_forward_aux(p, cfg, tokens)[0]
 
 
 def _logz_gold(logits: torch.Tensor, tokens: torch.Tensor):
@@ -176,15 +219,18 @@ def _logz_gold(logits: torch.Tensor, tokens: torch.Tensor):
     return logz, gold
 
 
-def xent_loss(logits: torch.Tensor, tokens: torch.Tensor
+def xent_loss(logits: torch.Tensor, tokens: torch.Tensor,
+              aux: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss ``ModelApi.loss`` trains on (the reference's
     ``_xent_loss``): mean next-token cross-entropy plus the z-loss
-    1e-4·mean(logz²).  Returns (loss, {"nll", "aux", "z"})."""
+    1e-4·mean(logz²) plus the MoE aux loss ``aux`` (0 when None).
+    Returns (loss, {"nll", "aux", "z"})."""
     logz, gold = _logz_gold(logits, tokens)
     nll = (logz - gold).mean()
     zloss = 1e-4 * (logz ** 2).mean()
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return nll + zloss + aux, {"nll": nll, "aux": aux, "z": zloss}
 
 
@@ -192,16 +238,16 @@ def lm_loss(p: Params, cfg, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy and z-loss of ``batch["tokens"]`` as sums
     over the target positions that ``batch["loss_mask"]`` [B, S] keeps
-    (all when absent), divided by their count."""
+    (all when absent), divided by their count, plus the MoE aux loss."""
     tokens = batch["tokens"]
-    logz, gold = _logz_gold(lm_forward(p, cfg, tokens), tokens)
+    logits, aux = lm_forward_aux(p, cfg, tokens)
+    logz, gold = _logz_gold(logits, tokens)
     mask = batch.get("loss_mask")
     mask = (torch.ones_like(gold) if mask is None
             else mask[:, 1:].float())
     denom = torch.clamp(mask.sum(), min=1.0)
     nll = ((logz - gold) * mask).sum() / denom
     zloss = 1e-4 * ((logz ** 2) * mask).sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=gold.device)
     return nll + zloss + aux, {"nll": nll, "aux": aux, "z": zloss}
 
 
@@ -212,13 +258,15 @@ def lm_loss(p: Params, cfg, batch: Dict[str, torch.Tensor]
 @torch.no_grad()
 def collect_qkv(p: Params, cfg, tokens: torch.Tensor):
     """Run the model, capturing per-layer post-RoPE q/k and v (§4.1.1).
+    The layers run as in training (MoE layers drop past capacity), as in
+    the reference.
 
     Returns (q [L,B,S,H,dh], k [L,B,S,Kv,dh], v [L,B,S,Kv,dh], wo [L,H·dh,d])."""
     x, positions = _embed(p, cfg, tokens)
     qs, ks, vs = [], [], []
     for i in range(cfg.n_layers):
-        x, (q, k, v) = _layer_qkv_forward(layer_params(p, i), cfg, x,
-                                          positions)
+        x, _, (q, k, v) = _layer_qkv_forward(layer_params(p, i), cfg, x,
+                                             positions)
         qs.append(q)
         ks.append(k)
         vs.append(v)

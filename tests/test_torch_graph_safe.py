@@ -2,8 +2,9 @@
 
 A CUDA graph cannot hold a dispatch that reads a value back to the host or
 whose shapes follow the schedule.  Here each decode and chunk dispatch of
-``ServeEngine`` (slab, paged, dense) runs eagerly on the CPU under a
-``TorchDispatchMode`` recorder:
+``ServeEngine`` (slab, paged, dense; llama3-8b's smoke config, and both
+MoE smoke configs) runs eagerly on the CPU under a ``TorchDispatchMode``
+recorder:
 
 * it calls no op that reads a tensor's value on the host or sizes a
   result by its data (``aten::nonzero``, ``aten::_local_scalar_dense``,
@@ -71,15 +72,27 @@ def _no_host_conversions(monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, refuse)
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = get_smoke_config("llama3-8b").replace(dtype="float32",
-                                                param_dtype="float32")
+def _model(arch):
+    cfg = get_smoke_config(arch).replace(dtype="float32",
+                                         param_dtype="float32")
     api = get_model(cfg)
     params = api.init_params(cfg, 0, "cpu")
     pj = calibrate_swan(api, cfg, params, make_batch(cfg, 2, 16,
                                                      device="cpu"))
     return cfg, params, api.absorb(params, cfg, pj), pj
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model("llama3-8b")
+
+
+@pytest.fixture(scope="module", params=["deepseek-moe-16b",
+                                        "qwen2-moe-a2.7b"])
+def moe_model(request):
+    """A MoE smoke config: the experts' fixed-capacity scatter and
+    slot-order combine inside every dispatch."""
+    return _model(request.param)
 
 
 def _engine(model, layout):
@@ -119,11 +132,7 @@ def _schedules(kind, layout):
     return out
 
 
-@pytest.mark.parametrize("kind", ["decode", "chunk"])
-@pytest.mark.parametrize("layout", ["slab", "paged", "dense"])
-def test_dispatch_reads_nothing_back_and_follows_the_bucket(model, layout,
-                                                             kind,
-                                                             monkeypatch):
+def _check_dispatches(model, layout, kind, monkeypatch):
     eng = _engine(model, layout)
     width = 4 if layout == "paged" else None
     if width is not None:
@@ -150,6 +159,22 @@ def test_dispatch_reads_nothing_back_and_follows_the_bucket(model, layout,
     assert traces[0] == traces[1]
     timed = eng.metrics.get("serve_dispatch_ms", kind=kind, kernel="torch")
     assert timed.count == 2 and len(eng.trace.events) == n_events
+
+
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+@pytest.mark.parametrize("layout", ["slab", "paged", "dense"])
+def test_dispatch_reads_nothing_back_and_follows_the_bucket(model, layout,
+                                                             kind,
+                                                             monkeypatch):
+    _check_dispatches(model, layout, kind, monkeypatch)
+
+
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+@pytest.mark.parametrize("layout", ["slab", "paged", "dense"])
+def test_moe_dispatch_reads_nothing_back_and_follows_the_bucket(
+        moe_model, layout, kind, monkeypatch):
+    assert moe_model[0].moe is not None
+    _check_dispatches(moe_model, layout, kind, monkeypatch)
 
 
 # ---------------------------------------------------------------------------

@@ -110,8 +110,9 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
     """The lockstep session, the paged, chunked engine (with its graph
     family enumerated by ``runtime.warmup``), the launcher with
     ``--metrics-out``, ``--trace-out`` and ``--profile-steps``, the serve
-    benchmarks and the kernel microbenchmark (all six kernels' wrappers)
-    run on the CPU with neither ``jax`` nor any ``repro.`` or
+    benchmarks, the kernel microbenchmark (all six kernels' wrappers) and
+    a lockstep session of a MoE smoke config (``models.moe``, q/k/v
+    biases) run on the CPU with neither ``jax`` nor any ``repro.`` or
     ``benchmarks`` module imported."""
     code = (
         "import sys\n"
@@ -156,6 +157,15 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
         "import repro_torch.kernels.swan_prune.ops\n"
         "rec = bench_kernels.run(smoke=True, device='cpu')\n"
         "assert len(rec.extra['roofline']) == 7\n"
+        "import repro_torch.models.moe\n"
+        "mcfg = get_smoke_config('qwen2-moe-a2.7b')\n"
+        "mapi = get_model(mcfg)\n"
+        "mp = mapi.init_params(mcfg, 0, 'cpu')\n"
+        "mpj = calibrate_swan(mapi, mcfg, mp, make_batch(mcfg, 2, 16, device='cpu'))\n"
+        "ms = ServeSession(mcfg, mapi.absorb(mp, mcfg, mpj), swan=SwanConfig("
+        "k_max=8, buffer=4), projections=mpj, max_seq=32, batch=2, device='cpu')\n"
+        "assert tuple(ms.generate(make_batch(mcfg, 2, 8, device='cpu'), 4)"
+        ".shape) == (2, 4)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('repro', 'benchmarks')]\n"
         "assert not bad, bad\n"
