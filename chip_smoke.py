@@ -25,10 +25,16 @@ Phases, each of which must pass (any failure exits non-zero):
               ``repro_torch/analysis/roofline.py``); for the decode
               kernels and winnowing also the host's µs per wrapper call
               and the device µs of their kernels (profiler).  Then B1-B4
-              at the dense family's other query groups, d_head 128:
-              yi-9b's (Kv 4, G 8) and olmo-1b's (Kv 16, G 1), every value
-              type, chunks of 256 x G queries, each against its plain
-              version and timed beside its bound.
+              at the served archs' other query groups: yi-9b's (Kv 4, G 8)
+              and olmo-1b's (Kv 16, G 1) at d_head 128, internvl2-1b's
+              (Kv 2, G 7) and whisper-small's (Kv 12, G 1) at d_head 64,
+              every value type, chunks of 256 x G queries, each against
+              its plain version and timed beside its bound; and B1/B2 at
+              G in (3, 5, 6, 7, 12, 16), which the CUDA source has no
+              instance of (``swan_decode.g_plan`` pads G with zero query
+              rows up to the next instance and cuts G > 8 into groups),
+              every value type, B2 == B1 bit for bit, timed at
+              internvl2-1b's serve shape.
    bench    — the kernel microbenchmark
               (``repro_torch.benchmarks.bench_kernels.run()``) at full
               llama3-8b width: every kernel launched, every roofline row
@@ -99,6 +105,25 @@ Phases, each of which must pass (any failure exits non-zero):
               engine's chunk and decode dispatches and the full-retention
               prompts stay under it, so nothing there is dropped.
               Parameter counts, peak memory and seconds per part printed.
+   vlm     — internvl2-1b (24 layers, d_model 896, 14/2 heads: G = 7,
+              q/k/v biases seeded N(0, 0.02)) at full width and depth,
+              bf16, seeded weights, SwanConfig(k_max=32, buffer=128): the
+              lockstep session over 256 patch embeddings + a 2048-token
+              prompt, eager and graphed (logits bit for bit, the session
+              continuing at the prefill's full length); the engine trace
+              (token prompts) eager on the slab and graphed at first use
+              on the paged pool; 4 layers at full retention against the
+              dense cache.
+   encdec  — whisper-small (12 + 12 layers, d_model 768, 12/12 heads,
+              every bias seeded N(0, 0.02)) at full width and depth,
+              bf16: the lockstep session (the reference serves it
+              lockstep only) over 1500 frames, a 384-token prompt and 64
+              new tokens, eager and graphed, with the static cross cache
+              dense and then winnowed (``compress_cross_attn``); B1 once
+              per decoder layer per step (G = 1); then in float32 at 4
+              decoder layers, full retention against the dense
+              self-attention cache and the winnowed cross cache against
+              the dense one (2e-4 abs + 1e-3 rel, the reference's test).
 9. chunk_exact — 4 layers at full retention: a prompt prefilled in two
               chunks (slab, paged) against the dense monolithic prefill.
 10. obs     — the launcher (``repro_torch.launch.serve.main``) serving
@@ -132,7 +157,8 @@ Phases, each of which must pass (any failure exits non-zero):
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
 that ran the kernel — the bench, the lockstep serve, the engines, graphed
-and eager, the dense and MoE phases' models, the quality benches — and
+and eager, the dense, MoE, VLM and encoder-decoder phases' models, the
+quality benches — and
 ``launches_by_path`` per path), and the result line
 ``{"ok": true, "device": {...}}``; the ``[done]`` line before them gives
 each phase's seconds.  Without a CUDA device it exits non-zero and prints
@@ -154,6 +180,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # the serve phase's shapes (llama3-8b, SwanConfig(k_max=64, buffer=128))
 B, KV, G, DH, K, BUF, S = 4, 8, 4, 128, 64, 128, 4096
 PROMPT, NEW_TOKENS = 2048, 64
+VLM_PREFIX = 256                 # internvl2-1b's patch embeddings
 
 
 def log(msg: str) -> None:
@@ -578,15 +605,15 @@ P_CHUNK, Q_CHUNK, CS = 2, 256 * G, 2048
 CPG = CS // PS
 
 
-def chunk_inputs(kind, sp, gen, q_len=Q_CHUNK, k=K, kv=KV):
-    """Operands of one chunk-stats read: f32 q [P, kv, q_len, DH], packed
+def chunk_inputs(kind, sp, gen, q_len=Q_CHUNK, k=K, kv=KV, dh=DH):
+    """Operands of one chunk-stats read: f32 q [P, kv, q_len, dh], packed
     slab [P, kv, CS, k] (+ scales), sp_len [P]."""
     import torch
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    idx = lambda: torch.rand((P_CHUNK, kv, CS, DH), generator=gen, device=dev
+    idx = lambda: torch.rand((P_CHUNK, kv, CS, dh), generator=gen, device=dev
                              ).argsort(-1)[..., :k].to(torch.int8)
-    a = {"q": rnd(P_CHUNK, kv, q_len, DH), "k_idx": idx(), "v_idx": idx(),
+    a = {"q": rnd(P_CHUNK, kv, q_len, dh), "k_idx": idx(), "v_idx": idx(),
          "sp_len": torch.tensor(sp, dtype=torch.int32, device=dev)}
     vdt = {"bf16": torch.bfloat16, "f32": torch.float32,
            "fp8": torch.float8_e4m3fn, "int8": torch.int8}[kind]
@@ -619,8 +646,9 @@ def chunk_sdpa_yardstick(a):
     import torch
     import torch.nn.functional as F
 
-    kd = dense_expand(a["k_vals"], a["k_idx"], a.get("k_scale")).bfloat16()
-    vd = dense_expand(a["v_vals"], a["v_idx"], a.get("v_scale")).bfloat16()
+    dh = a["q"].shape[-1]
+    kd = dense_expand(a["k_vals"], a["k_idx"], a.get("k_scale"), dh).bfloat16()
+    vd = dense_expand(a["v_vals"], a["v_idx"], a.get("v_scale"), dh).bfloat16()
     q = a["q"].bfloat16()
     mask = (torch.arange(CS, device="cuda")[None] < a["sp_len"][:, None]
             )[:, None, None, :]
@@ -733,16 +761,22 @@ def chunk_phase():
     return max_err, rows
 
 
-# the dense family's other query groups at d_head 128: yi-9b (32/4 heads)
-# and olmo-1b (16/16 heads), as the dense phase serves them
-SERVED_GROUPS = (("yi-9b", 4, 8), ("olmo-1b", 16, 1))     # (arch, Kv, G)
+# the served archs' other query groups: yi-9b (32/4 heads) and olmo-1b
+# (16/16) at d_head 128 and k 64, internvl2-1b (14/2: G = 7, the padded
+# plan's one launch of the G = 8 instance) and whisper-small's decoder
+# (12/12) at d_head 64 and k 32, as the dense, vlm and encdec phases serve
+# them: (arch, Kv, G, d_head, k)
+SERVED_GROUPS = (("yi-9b", 4, 8, DH, K), ("olmo-1b", 16, 1, DH, K),
+                 ("internvl2-1b", 2, 7, 64, 32),
+                 ("whisper-small", 12, 1, 64, 32))
 
 
 def served_groups_phase():
-    """B1 and B2 (k=64, b=128, every value type) and B3 and B4 (a chunk of
-    256 tokens, Q = 256·G) at yi-9b's G = 8 and olmo-1b's G = 1, d_head
-    128: each against its plain twin (B2 == B1 and B4 == B3 bit for bit),
-    then each timed beside its bound at the serve shape (bf16)."""
+    """B1 and B2 (b=128, every value type) and B3 and B4 (a chunk of 256
+    tokens, Q = 256·G) at each served arch's query group, d_head and k:
+    each against its plain twin (B2 == B1 and B4 == B3 bit for bit), then
+    each timed beside its bound at the serve shape (bf16).  Returns the
+    worst errors."""
     import torch
     from repro_torch.kernels.swan_decode.swan_decode import (
         SPLIT_ROWS, swan_decode, swan_decode_paged, swan_decode_paged_plain,
@@ -758,21 +792,23 @@ def served_groups_phase():
     names = ("k_vals", "k_idx", "v_vals", "v_idx", "k_scale", "v_scale")
     flush = flush_buffer()
     max_err = {}
-    for arch, kv, g in SERVED_GROUPS:
-        shape = f"{arch} Kv={kv} G={g} dh={DH}"
+    for arch, kv, g, dh, k in SERVED_GROUPS:
+        shape = f"{arch} Kv={kv} G={g} dh={dh} k={k}"
         for kind in ("bf16", "int8", "fp8", "f32"):
             for case, pos in dec_cases.items():
                 decode_check(kind, f"{arch} Kv={kv} {case}",
-                             decode_inputs(kind, pos, gen, K, g, DH, kv),
+                             decode_inputs(kind, pos, gen, k, g, dh, kv),
                              tol[kind], max_err)
-        a = decode_inputs("bf16", [PROMPT + NEW_TOKENS - 2] * B, gen, K, g,
-                          DH, kv)
+        a = decode_inputs("bf16", [PROMPT + NEW_TOKENS - 2] * B, gen, k, g,
+                          dh, kv)
         nbytes, flops = decode_bytes_flops(a)
         lib_fn, _ = sdpa_yardstick(a)
-        timed_rows(f"swan_decode[bf16] {shape} serve shape (sp_len "
-                   f"{int(a['sp_len'][0])})", lambda: call(swan_decode, a),
+        label = (f"swan_decode[bf16] {shape} serve shape (sp_len "
+                 f"{int(a['sp_len'][0])})")
+        timed_rows(label, lambda: call(swan_decode, a),
                    lambda: call(swan_decode_plain, a), lib_fn, nbytes, flops,
                    flush)
+        log_host_device(label, lambda: call(swan_decode, a), a, flush, S)
         sp = [int(x) for x in a["sp_len"].tolist()]
         pool, tab = page_out(a, sp, gen, [n for n in names if n in a], B)
         pargs = ([a["q"], pool["k_vals"], pool["k_idx"], pool["v_vals"],
@@ -794,15 +830,62 @@ def served_groups_phase():
         cmax = {}
         for kind in ("bf16", "int8", "fp8", "f32"):
             for case, sp in chunk_cases.items():
-                a = chunk_inputs(kind, sp, gen, 256 * g, K, kv)
+                a = chunk_inputs(kind, sp, gen, 256 * g, k, kv, dh)
                 args = chunk_check(kind, f"{shape} Q=256x{g} {case}", a, gen,
                                    cmax)
                 if kind == "bf16" and not case.endswith("lane"):
                     chunk_timed_rows(f"{shape} P=2 Q=256x{g} {case}", a,
                                      *args, flush)
-        max_err["chunk_bf16"] = cmax["bf16"]
+        max_err["chunk_bf16"] = max(max_err.get("chunk_bf16", 0.0),
+                                    cmax["bf16"])
     del flush
     return max_err
+
+
+# B1/B2 at the query groups the CUDA source has no instance of (the padded
+# plan of ``swan_decode.g_plan``: 3 -> 4; 5, 6, 7 -> 8; 12 and 16 -> two
+# launches of 8), at internvl2-1b's serve shape (Kv 2, d_head 64, k 32)
+GROUP_SIZES = (3, 5, 6, 7, 12, 16)
+
+
+def group_sizes_phase():
+    """B1 and B2 at every G of ``GROUP_SIZES``, every value type: each
+    against its plain twin, two B1 launches bit for bit, B2 == B1 bit for
+    bit through a shuffled page pool; then B1 timed beside its bound and
+    SDPA (bf16).  Returns the worst errors and the timed rows by G."""
+    import torch
+    from repro_torch.kernels.swan_decode.swan_decode import (
+        g_plan, swan_decode, swan_decode_plain)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tol = {"f32": 1e-5, "bf16": 1e-2, "int8": 1e-2, "fp8": 1e-2}
+    kv, dh, k = 2, 64, 32
+    serve_pos = [VLM_PREFIX + PROMPT + NEW_TOKENS - 2] * B
+    cases = {"per-sequence pos": [PROMPT + NEW_TOKENS - 2, 1000, 3000, S - 7],
+             "internvl2-1b serve": serve_pos}
+    flush = flush_buffer()
+    max_err, rows = {}, {}
+    for g in GROUP_SIZES:
+        inst, groups, per = g_plan(g)
+        log(f"  G={g}: {groups} launch(es) of the G={inst} instance, "
+            f"{per} query heads each")
+        for kind in ("bf16", "int8", "fp8", "f32"):
+            for case, pos in cases.items():
+                decode_check(kind, f"Kv={kv} {case}",
+                             decode_inputs(kind, pos, gen, k, g, dh, kv),
+                             tol[kind], max_err)
+        a = decode_inputs("bf16", serve_pos, gen, k, g, dh, kv)
+        nbytes, flops = decode_bytes_flops(a)
+        lib_fn, _ = sdpa_yardstick(a)
+        label = (f"swan_decode[bf16] G={g} Kv={kv} dh={dh} k={k} "
+                 f"internvl2-1b serve shape (sp_len {int(a['sp_len'][0])})")
+        rows[g] = timed_rows(label, lambda: call(swan_decode, a),
+                             lambda: call(swan_decode_plain, a), lib_fn,
+                             nbytes, flops, flush)
+        # the padding is host work around the launch: the device time
+        # tells the kernels' own
+        log_host_device(label, lambda: call(swan_decode, a), a, flush, S)
+    del flush
+    return max_err, rows
 
 
 # ---------------------------------------------------------------------------
@@ -1041,14 +1124,27 @@ def bench_phase(kernels):
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
+BIASES = ("bq", "bk", "bv", "bo", "b_up", "b_down")
+
+
 def seeded_biases_(cfg, params, seed=0):
-    """Fill a ``qkv_bias`` config's q/k/v biases (zeros at init, as in the
-    reference) with seeded N(0, 0.02) values, so the bias and absorbed
-    b̂_v paths see non-zero values on the card."""
+    """Fill a config's biases (zeros at init, as in the reference) with
+    seeded N(0, 0.02) values, so the bias and absorbed b̂_v paths see
+    non-zero values on the card: a transformer's q/k/v biases, or every
+    bias of an encoder-decoder's trees (in sorted key order)."""
     import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        def walk(tree):
+            for key in sorted(tree):
+                if isinstance(tree[key], dict):
+                    walk(tree[key])
+                elif key in BIASES:
+                    tree[key].normal_(0.0, 0.02, generator=gen)
+        walk(params)
+        return
     if not cfg.qkv_bias:
         return
-    gen = torch.Generator(device="cuda").manual_seed(seed)
     for name in ("bq", "bk", "bv"):
         params["layers"]["attn"][name].normal_(0.0, 0.02, generator=gen)
 
@@ -1077,6 +1173,11 @@ def full_model(arch="llama3-8b"):
     ffn = (f"d_ff {cfg.d_ff}" if m is None else
            f"{m.n_routed} routed experts (top-{m.top_k}) + {m.n_shared} "
            f"shared of width {m.d_expert}")
+    if cfg.n_prefix_tokens:
+        ffn += f", {cfg.n_prefix_tokens} patch embeddings"
+    if cfg.is_encoder_decoder:
+        ffn += (f", {cfg.n_encoder_layers} encoder layers over "
+                f"{cfg.encoder_seq} frames, every bias, learned positions")
     log(f"  init + calibrate + absorb: {time.perf_counter() - t0:.1f} s "
         f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {ffn}, vocab "
@@ -1254,21 +1355,24 @@ ENGINE_NEW = 32
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_LANES = 4, 256, 2
 
 
-def engine_requests(cfg):
+def engine_requests(cfg, k_max=K):
+    """The engine trace: token prompts, per-request k cycling over
+    ``ENGINE_K`` scaled to ``k_max``."""
     from repro_torch.launch.io import make_batch
     from repro_torch.runtime.serve_engine import Request
     return [Request(uid=f"req{i}",
                     tokens=make_batch(cfg, 1, n, seed=100 + i,
                                       device="cpu")["tokens"][0].tolist(),
-                    max_new_tokens=ENGINE_NEW, k=ENGINE_K[i % len(ENGINE_K)])
+                    max_new_tokens=ENGINE_NEW,
+                    k=ENGINE_K[i % len(ENGINE_K)] * k_max // K)
             for i, n in enumerate(ENGINE_LENS)]
 
 
-def make_engine(model, **kw):
+def make_engine(model, k_max=K, **kw):
     from repro_torch.configs import SwanConfig
     from repro_torch.runtime.serve_engine import ServeEngine
     cfg, params, projections = model
-    return ServeEngine(cfg, params, swan=SwanConfig(k_max=K, buffer=BUF),
+    return ServeEngine(cfg, params, swan=SwanConfig(k_max=k_max, buffer=BUF),
                        projections=projections, max_seq=S,
                        n_slots=ENGINE_SLOTS, prefill_chunk=ENGINE_CHUNK,
                        prefill_slots=ENGINE_LANES, device="cuda", **kw)
@@ -1504,28 +1608,35 @@ def check_executions(label, window, attempts=3):
     check(False, f"[{label}] no traced window saw the expected executions")
 
 
-def lockstep_graphs(kernels, model, profile=True, summary=None):
+def lockstep_graphs(kernels, model, profile=True, summary=None, swan=None,
+                    prompt_len=PROMPT, new_tokens=NEW_TOKENS, max_seq=S,
+                    label="lockstep", bitwise=False):
     """The lockstep session eager and graphed in one call: the first
     prefill and decode logits, the generated tokens, decode ms/step; with
     ``profile``, a profile of graphed decode steps.  Each session
     generates once before the timed run, so the timed graphed run only
     replays.  ``summary`` (a dict) receives each mode's numbers and the
-    graphed session's cache report."""
+    graphed session's cache report.  The batch is ``make_batch``'s: a
+    VLM's prompt carries its patch embeddings, an encoder-decoder's its
+    frames.  ``swan`` defaults to SwanConfig(k_max=64, buffer=128).  With
+    ``bitwise`` the graphed logits must equal the eager ones bit for bit
+    (else within 5e-2 of their scale)."""
     import torch
     from repro_torch.configs import SwanConfig
     from repro_torch.launch.io import make_batch
     from repro_torch.runtime.serve_loop import ServeSession
 
     cfg, params, projections = model
-    swan = SwanConfig(k_max=K, buffer=BUF, mode="topk")
-    prompt = make_batch(cfg, B, PROMPT, seed=11, device="cuda")
+    if swan is None:
+        swan = SwanConfig(k_max=K, buffer=BUF, mode="topk")
+    prompt = make_batch(cfg, B, prompt_len, seed=11, device="cuda")
     res = {}
     for mode in ("eager", "graphed"):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         sess = ServeSession(cfg, params, swan=swan, projections=projections,
-                            max_seq=S, batch=B, graphs=mode == "graphed",
+                            max_seq=max_seq, batch=B, graphs=mode == "graphed",
                             device="cuda")
         l0 = sess.prefill(prompt)
         l1 = sess.decode(torch.argmax(l0.float(), dim=-1))
@@ -1539,30 +1650,34 @@ def lockstep_graphs(kernels, model, profile=True, summary=None):
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
-        out = sess.generate(prompt, NEW_TOKENS)
+        out = sess.generate(prompt, new_tokens)
         torch.cuda.synchronize()
         gen_ms = (time.perf_counter() - t0) * 1e3
         launches = {k.name: k.launches for k in kernels}
-        steps = NEW_TOKENS - 1
+        steps = new_tokens - 1
         res[mode] = {"first": first, "out": out, "launches": launches,
                      "prefill_ms": prefill_ms,
                      "decode_ms": (gen_ms - prefill_ms) / steps,
-                     "tok_s": B * NEW_TOKENS / (gen_ms / 1e3),
+                     "tok_s": B * new_tokens / (gen_ms / 1e3),
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        log(f"  [lockstep {mode}] prefill {B}x{PROMPT} {prefill_ms:.1f} ms; "
-            f"generate {B}x{NEW_TOKENS} {gen_ms:.1f} ms -> decode "
+        log(f"  [{label} {mode}] prefill {B}x{prompt_len} {prefill_ms:.1f} ms; "
+            f"generate {B}x{new_tokens} {gen_ms:.1f} ms -> decode "
             f"{res[mode]['decode_ms']:.2f} ms/step, {res[mode]['tok_s']:.1f} "
             f"tok/s (prefill included); device memory peak "
             f"{res[mode]['peak_gib']:.2f} GiB; launches {launches}")
         check(launches["swan_decode"] == cfg.n_layers * steps,
-              f"[lockstep {mode}] swan_decode launched "
+              f"[{label} {mode}] swan_decode launched "
               f"{launches['swan_decode']} times, expected {cfg.n_layers} x "
               f"{steps}")
+        # a VLM's decode continues after its patch positions
+        want_pos = cfg.n_prefix_tokens + prompt_len + new_tokens - 1
+        check(sess.pos == want_pos,
+              f"[{label} {mode}] session at {sess.pos}, expected {want_pos}")
         if mode == "graphed":
             g = sess._graphs
             rep = sess.cache_report()
             res[mode]["report"] = rep
-            log(f"  [lockstep graphed] graphs {dict(g.captures)}, replays "
+            log(f"  [{label} graphed] graphs {dict(g.captures)}, replays "
                 f"{dict(g.replays)}, capture {g.capture_s:.2f} s; cache "
                 f"[{rep['mode']}] {rep['bytes'] / 1e6:.1f} MB vs dense "
                 f"{rep['dense_bytes'] / 1e6:.1f} MB ({rep['saving']:.1%} "
@@ -1584,11 +1699,12 @@ def lockstep_graphs(kernels, model, profile=True, summary=None):
                        ("first decode", e["first"][1], g["first"][1])):
         diff = (a - b).abs().max().item()
         scale = max(1.0, a.abs().max().item())
-        log(f"  [lockstep] {what} logits graphed vs eager: max|diff| {diff} "
+        log(f"  [{label}] {what} logits graphed vs eager: max|diff| {diff} "
             f"({'bit for bit' if diff == 0 else f'tol {5e-2 * scale:.4f}'})")
-        check(diff <= 5e-2 * scale, f"graphed {what} logits differ from eager")
+        check(diff <= (0.0 if bitwise else 5e-2 * scale),
+              f"[{label}] graphed {what} logits differ from eager")
     same = bool(torch.equal(e["out"], g["out"]))
-    log(f"  [lockstep] graphed tokens == eager tokens: {same}; decode "
+    log(f"  [{label}] graphed tokens == eager tokens: {same}; decode "
         f"{g['decode_ms']:.2f} vs {e['decode_ms']:.2f} ms/step "
         f"({g['decode_ms'] / e['decode_ms']:.3f} x)")
     check(same, "graphed lockstep tokens differ from eager")
@@ -1975,7 +2091,7 @@ def log_on_off(on_off, smi):
 DENSE_ARCHS = ("yi-9b", "olmo-1b")
 
 
-def dense_engine(kernels, model, arch):
+def dense_engine(kernels, model, arch, k_max=K):
     """The engine trace eagerly on the slab (B1, B3), then graphed at first
     use on the 64-row paged pool with ``async_fetch`` (B2, B4): equal
     tokens and dispatches; the two reports' dense bytes equal, the paged
@@ -1983,20 +2099,21 @@ def dense_engine(kernels, model, arch):
     add the ring positions) and its live bytes below them; each layout's
     kernels launched once per layer per dispatch (through the replays on
     the paged pool, plus once per layer for each graph's warm run at its
-    capture).  Returns the launch counts of both runs."""
+    capture).  ``k_max`` sizes the SwanConfig and scales the requests' k.
+    Returns the launch counts of both runs."""
     import torch
     cfg = model[0]
-    eng = make_engine(model, graphs=False, metrics=False)
+    eng = make_engine(model, k_max, graphs=False, metrics=False)
     label = f"{arch} slab eager"
-    slab = drive(kernels, eng, engine_requests(cfg), label)
+    slab = drive(kernels, eng, engine_requests(cfg, k_max), label)
     check_launches(slab, "slab", cfg.n_layers, label)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    eng = make_engine(model, graphs=True, metrics=False, paged=True,
+    eng = make_engine(model, k_max, graphs=True, metrics=False, paged=True,
                       page_size=PS, async_fetch=True)
     label = f"{arch} paged graphed async_fetch"
-    paged = drive(kernels, eng, engine_requests(cfg), label)
+    paged = drive(kernels, eng, engine_requests(cfg, k_max), label)
     g = eng._graphs
     lazy, launches, d = dict(g.lazy_captures), paged["launches"], \
         paged["dispatches"]
@@ -2149,6 +2266,188 @@ def moe_phase(kernels):
     return counts
 
 
+VLM_ARCH, VLM_K = "internvl2-1b", 32
+
+
+def summary_line(arch, cfg, lock, worst, secs):
+    """One line of a served arch's numbers: parameters, lockstep decode and
+    prefill (graphed / eager), device memory, the cache (Eq. 1)."""
+    e, g = lock["eager"], lock["graphed"]
+    rep = g["report"]
+    return (f"{arch}: {cfg.n_params() / 1e9:.3f} B params; lockstep decode "
+            f"graphed {g['decode_ms']:.2f} / eager {e['decode_ms']:.2f} "
+            f"ms/step; prefill graphed {g['prefill_ms']:.1f} / eager "
+            f"{e['prefill_ms']:.1f} ms; device memory peak graphed "
+            f"{g['peak_gib']:.2f} / eager {e['peak_gib']:.2f} GiB; "
+            f"self-attention cache (Eq. 1) SWAN {rep['bytes'] / 1e6:.1f} MB vs "
+            f"dense {rep['dense_bytes'] / 1e6:.1f} MB ({rep['saving']:.1%} "
+            f"saving); full retention: worst relative logit error {worst:.2e}; "
+            f"seconds: {secs}")
+
+
+def vlm_phase(kernels):
+    """internvl2-1b at full width and depth (24 layers, 14/2 heads: G = 7,
+    q/k/v biases seeded N(0, 0.02)), bf16, seeded weights, calibrated on a
+    batch with patch embeddings: the lockstep session over 256 patch
+    embeddings + a 2048-token prompt, eager and graphed (logits bit for
+    bit, tokens equal, B1 once per layer per step at G = 7, the session
+    continuing at the prefill's full length); the engine trace (token
+    prompts) eagerly on the slab (B1, B3) and graphed at first use on the
+    paged pool (B2, B4); 4 layers at full retention against the dense cache
+    (decode after a prompt with patch embeddings; two-chunk prefill, slab
+    and paged).  Returns the launch counts by path."""
+    import torch
+    from repro_torch.configs import SwanConfig
+    t0 = time.perf_counter()
+    log(f"[vlm] {VLM_ARCH}: full width and depth, {VLM_PREFIX} patch "
+        f"embeddings + {PROMPT} prompt tokens, SWAN k={VLM_K} b={BUF}")
+    model = full_model(VLM_ARCH)
+    cfg = model[0]
+    t1 = time.perf_counter()
+    lock, counts = {}, {}
+    graphed, eager = lockstep_graphs(
+        kernels, model, profile=False, summary=lock,
+        swan=SwanConfig(k_max=VLM_K, buffer=BUF), label=f"{VLM_ARCH} lockstep",
+        bitwise=True)
+    counts["vlm_lockstep_eager"], counts["vlm_lockstep_graphed"] = eager, graphed
+    t2 = time.perf_counter()
+    slab, paged = dense_engine(kernels, model, VLM_ARCH, k_max=VLM_K)
+    counts["vlm_engine_slab"], counts["vlm_engine_paged_graphed"] = slab, paged
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    log(f"[vlm] {VLM_ARCH}: 4 layers at full width, k=d_head vs the dense "
+        f"cache (decode after {VLM_PREFIX} patch embeddings + "
+        f"{EXACT_PROMPT} tokens; two-chunk prefill of tokens, slab and paged)")
+    worst = max(exact_phase(kernels, VLM_ARCH),
+                chunk_exact_phase(kernels, VLM_ARCH))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    log("[vlm] " + summary_line(
+        VLM_ARCH, cfg, lock, worst,
+        f"model {t1 - t0:.1f}, lockstep {t2 - t1:.1f}, engine {t3 - t2:.1f}, "
+        f"exact {t4 - t3:.1f}, all {t4 - t0:.1f}"))
+    return counts
+
+
+# whisper-small's lockstep cell: 1500 frames, a 384-token prompt and 64 new
+# tokens (448 positions: Whisper's published decoder context)
+WHISPER_PROMPT, WHISPER_NEW = 384, 64
+
+
+def cross_cache_bytes(cfg, swan, batch):
+    """Bytes of the static cross cache: dense k/v, or packed sides."""
+    from repro_torch.core.hybrid_cache import packed_vector_bytes
+    per = (packed_vector_bytes(cfg, swan) if swan.compress_cross_attn
+           else 2 * cfg.d_head)
+    return 2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.encoder_seq * per
+
+
+def encdec_phase(kernels):
+    """whisper-small at full width and depth (12 + 12 layers, 12/12 heads,
+    every bias seeded N(0, 0.02)), bf16, seeded weights: the lockstep
+    session (the reference serves it lockstep only) over 1500 frames and a
+    384-token prompt, 64 new tokens, eager and graphed, with the static
+    cross cache dense and then winnowed (``compress_cross_attn``): logits
+    bit for bit, tokens equal, B1 once per decoder layer per step (G = 1).
+    Then, in float32 at 4 decoder layers, full retention against the dense
+    self-attention cache and the winnowed cross cache against the dense
+    one (the reference's own test at full width).  Returns the launch
+    counts by path."""
+    import torch
+    from repro_torch.configs import SwanConfig
+    arch = "whisper-small"
+    t0 = time.perf_counter()
+    log(f"[encdec] {arch}: full width and depth, SWAN k={VLM_K} b={BUF}, "
+        f"cross cache dense and winnowed")
+    model = full_model(arch)
+    cfg = model[0]
+    counts, secs = {}, [f"model {time.perf_counter() - t0:.1f}"]
+    for compress in (False, True):
+        t1 = time.perf_counter()
+        swan = SwanConfig(k_max=VLM_K, buffer=BUF, compress_cross_attn=compress)
+        tag = "cross winnowed" if compress else "cross dense"
+        lock = {}
+        graphed, eager = lockstep_graphs(
+            kernels, model, profile=False, summary=lock, swan=swan,
+            prompt_len=WHISPER_PROMPT, new_tokens=WHISPER_NEW,
+            max_seq=WHISPER_PROMPT + WHISPER_NEW,
+            label=f"{arch} lockstep, {tag}", bitwise=True)
+        key = "encdec_cross_winnowed" if compress else "encdec"
+        counts[f"{key}_lockstep_eager"] = eager
+        counts[f"{key}_lockstep_graphed"] = graphed
+        log(f"  [{arch}, {tag}] cross cache {cross_cache_bytes(cfg, swan, B) / 1e6:.1f} "
+            f"MB (dense {cross_cache_bytes(cfg, SwanConfig(), B) / 1e6:.1f} MB)")
+        log("[encdec] " + summary_line(
+            f"{arch} ({tag})", cfg, lock, 0.0,
+            f"lockstep {time.perf_counter() - t1:.1f}"))
+        secs.append(f"{tag} {time.perf_counter() - t1:.1f}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    worst = encdec_exact(kernels, arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[encdec] {arch}: full retention worst relative logit error "
+        f"{worst:.2e} (float32); seconds: {', '.join(secs)}, exact "
+        f"{time.perf_counter() - t3:.1f}, all {time.perf_counter() - t0:.1f}")
+    return counts
+
+
+def encdec_exact(kernels, arch):
+    """4 decoder layers at full width in float32, k = d_head: a batch of 4
+    (1500 frames, 384 tokens) prefilled and decoded 8 steps through the
+    dense cache, SWAN, and SWAN with the cross cache winnowed.  SWAN
+    against dense within 5e-2 of the logits' scale (as every arch), and the
+    winnowed cross cache against the dense one within the reference test's
+    2e-4 abs + 1e-3 rel; B1 once per layer per decode step in each SWAN
+    session.  Returns the worst relative error."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    cfg, _, params, proj, absorbed, full = small_model(arch, "float32")
+    kw = dict(max_seq=WHISPER_PROMPT + 16, batch=B, graphs=False,
+              device="cuda")
+    sessions = {"dense": ServeSession(cfg, params, **kw),
+                "swan": ServeSession(cfg, absorbed, swan=full,
+                                     projections=proj, **kw),
+                "swan, cross winnowed": ServeSession(
+                    cfg, absorbed, projections=proj, **kw,
+                    swan=dataclasses.replace(full, compress_cross_attn=True))}
+    check(isinstance(sessions["swan, cross winnowed"].state["cross"]["k"],
+                     dict), "the winnowed cross cache is not packed")
+    prompt = make_batch(cfg, B, WHISPER_PROMPT, seed=5, device="cuda")
+    kern = {k.name: k for k in kernels}["swan_decode"]
+    logits = {n: s.prefill(prompt) for n, s in sessions.items()}
+    before, worst = kern.launches, 0.0
+    for step in range(9):
+        ld = logits["dense"].float()
+        scale = max(1.0, ld.abs().max().item())
+        err = (logits["swan"].float() - ld).abs().max().item()
+        a, b = logits["swan, cross winnowed"].float(), logits["swan"].float()
+        cross = (a - b).abs().max().item()
+        cross_ok = bool(((a - b).abs() <= 2e-4 + 1e-3 * b.abs()).all())
+        log(f"  step {step}: max|swan - dense| {err:.2e} (max|dense| "
+            f"{scale:.2f}, tol {5e-2 * scale:.4f}); max|cross winnowed - "
+            f"cross dense| {cross:.2e} (2e-4 + 1e-3 rel: {cross_ok})")
+        check(err <= 5e-2 * scale, "full-retention SWAN logits differ from dense")
+        check(cross_ok, "the winnowed cross cache at full retention differs "
+              "from the dense one")
+        worst = max(worst, err / scale)
+        if step == 8:
+            break
+        tok = ld.argmax(-1)
+        logits = {n: s.decode(tok) for n, s in sessions.items()}
+    check(kern.launches - before == 2 * cfg.n_layers * 8,
+          "the exactness decode did not go through the kernel")
+    return worst
+
+
 def bf16_routing(arch, batch):
     """The exact phase's prefill in bf16, reported and not held to the
     tolerance: the router's top-k is discrete, so rounding that differs
@@ -2213,7 +2512,8 @@ def chunk_exact_phase(kernels, arch="llama3-8b", dtype=None):
 
     cfg, api, params, proj, absorbed, full = small_model(arch, dtype)
     n, C, max_seq = EXACT_PROMPT, ENGINE_CHUNK, 1024
-    prompt = make_batch(cfg, 1, n, seed=5, device="cuda")
+    # token prompts, as the engine's chunks take them (no patch embeddings)
+    prompt = {"tokens": make_batch(cfg, 1, n, seed=5, device="cuda")["tokens"]}
     dense_state = api.init_serve_state(cfg, None, 1, max_seq, "cuda")
     want, _ = api.prefill(params, cfg, prompt, dense_state)
     want = want[:, 0].float()
@@ -2760,7 +3060,7 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
 PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs", "dense",
-          "moe", "chunk_exact", "obs", "train")
+          "moe", "vlm", "encdec", "chunk_exact", "obs", "train")
 
 
 def main(argv=None) -> int:
@@ -2832,13 +3132,18 @@ def main(argv=None) -> int:
             "and bf16)")
         e, rows["swan_prune"] = prune_phase()
         err["swan_prune"] = e["bf16"]
-        log(f"[kernels] B1-B4 at the dense family's other query groups, "
-            f"dh={DH} k={K} b={BUF}: {SERVED_GROUPS}")
+        log(f"[kernels] B1-B4 at the served archs' other query groups, "
+            f"b={BUF}: (arch, Kv, G, d_head, k) in {SERVED_GROUPS}")
         e = served_groups_phase()
         for name in ("swan_decode", "swan_decode_paged"):
             err[name] = max(err[name], e["bf16"])
         for name in ("swan_chunk_stats", "swan_chunk_stats_paged"):
             err[name] = max(err[name], e["chunk_bf16"])
+        log(f"[kernels] B1/B2 at G in {GROUP_SIZES} (no CUDA instance: the "
+            f"padded plan), Kv=2 dh=64 k=32 b={BUF}, every value type")
+        e, _ = group_sizes_phase()
+        for name in ("swan_decode", "swan_decode_paged"):
+            err[name] = max(err[name], e["bf16"])
         lap("kernels")
     if "bench" in phases:
         log("[bench] repro_torch.benchmarks.bench_kernels at full llama3-8b "
@@ -2885,6 +3190,16 @@ def main(argv=None) -> int:
         for path, counts in moe_phase(KERNELS).items():
             record(path, counts)
         lap("moe")
+    if "vlm" in phases:
+        mark[0] = time.perf_counter()
+        for path, counts in vlm_phase(KERNELS).items():
+            record(path, counts)
+        lap("vlm")
+    if "encdec" in phases:
+        mark[0] = time.perf_counter()
+        for path, counts in encdec_phase(KERNELS).items():
+            record(path, counts)
+        lap("encdec")
     if "chunk_exact" in phases:
         log("[chunk_exact] 4 layers at full width, k=d_head: chunked prefill "
             "(slab, paged) vs the dense monolithic prefill")

@@ -4,7 +4,8 @@ claim: 50-60% per-token savings at strong quality).
 
 Emits dense vs SWAN cache bytes at the ``decode_32k`` serving shape (batch
 128, 32768 tokens), per arch of the port's registry (deepseek-moe-16b,
-qwen2-moe-a2.7b, llama3-8b, olmo-1b, yi-9b), for the paper-faithful
+qwen2-moe-a2.7b, llama3-8b, olmo-1b, yi-9b, internvl2-1b, whisper-small),
+for the paper-faithful
 setting (k = d_h/2, b = 128, fp16) and the 8-bit variant.  Pure arithmetic (paper Eq. 1).
 
     python -m repro_torch.benchmarks.bench_memory_footprint

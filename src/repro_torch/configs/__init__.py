@@ -1,14 +1,18 @@
 """Architecture registry of the port and the config dataclasses.  The
 port has the reference's dense family: llama3-8b (the paper's own
 evaluation model), yi-9b (GQA with G = 8) and olmo-1b (MHA, non-parametric
-LayerNorm, tied embeddings); and its ``moe`` family: deepseek-moe-16b
+LayerNorm, tied embeddings); its ``moe`` family: deepseek-moe-16b
 (64 routed experts, top-6, 2 shared) and qwen2-moe-a2.7b (60 routed,
-top-4, 4 shared, q/k/v biases).  llama3-405b waits for sharding, the other
-families for their model code."""
+top-4, 4 shared, q/k/v biases); its ``vlm`` family: internvl2-1b (G = 7,
+256 patch embeddings ahead of the tokens); and its ``encdec`` family:
+whisper-small (an encoder over 1500 frames, cross-attention, learned
+positions).  llama3-405b waits for sharding, the hybrid and ssm families
+for their model code."""
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_moe_16b, llama3_8b, olmo_1b,
-                                 qwen2_moe_a2_7b, yi_9b)
+from repro_torch.configs import (deepseek_moe_16b, internvl2_1b, llama3_8b,
+                                 olmo_1b, qwen2_moe_a2_7b, whisper_small,
+                                 yi_9b)
 from repro_torch.configs.base import (SHAPES, ModelConfig,  # noqa: F401
                                       MoEConfig, OptimizerConfig,
                                       ShapeConfig, SwanConfig, TrainConfig)
@@ -16,7 +20,8 @@ from repro_torch.configs.base import (SHAPES, ModelConfig,  # noqa: F401
 # the reference registry's order
 _ARCHS = {"deepseek-moe-16b": deepseek_moe_16b,
           "qwen2-moe-a2.7b": qwen2_moe_a2_7b, "llama3-8b": llama3_8b,
-          "olmo-1b": olmo_1b, "yi-9b": yi_9b}
+          "olmo-1b": olmo_1b, "yi-9b": yi_9b, "internvl2-1b": internvl2_1b,
+          "whisper-small": whisper_small}
 ARCH_IDS = list(_ARCHS)
 
 

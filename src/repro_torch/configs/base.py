@@ -1,6 +1,6 @@
 """Configuration dataclasses: the fields of ``repro.configs.base`` that the
-dense and MoE serving and training paths read, and the reference's input
-shapes, kept as the port's own copy."""
+dense, MoE, VLM and encoder-decoder serving and training paths read, and
+the reference's input shapes, kept as the port's own copy."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,6 +26,7 @@ class SwanConfig:
     quant_dtype: str = "int8"     # "int8" (+ per-vector scale) | "fp8" (e4m3fn cast)
     k_key: Optional[int] = None   # runtime active dims for keys   (None -> k_max)
     k_value: Optional[int] = None  # runtime active dims for values (None -> k_max)
+    compress_cross_attn: bool = False  # encdec: winnow the static cross-attn cache
 
     @property
     def kk(self) -> int:
@@ -65,16 +66,21 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Decoder-only transformer: RoPE, optional q/k/v biases
-    (``qkv_bias``), the norm of ``norm`` (RMSNorm, LayerNorm or OLMo's
-    non-parametric LayerNorm), an output head of its own or tied to the
-    embedding (``tie_embeddings``), and a mixture-of-experts FFN on the
-    layers ``ffn_kind`` names (``moe``).  These cover the reference's
-    dense family (llama3-8b, yi-9b, olmo-1b) and its ``moe`` family
-    (deepseek-moe-16b, qwen2-moe-a2.7b).  The reference's other bias,
-    positional, Mamba, RWKV, encoder-decoder and sharding fields
-    (``tp_style`` among them) come with the families and the sharding that
-    set them.
+    """The transformer of the ported families: RoPE or learned positions
+    (``pos``), optional q/k/v, attention-output and MLP biases
+    (``qkv_bias``, ``attn_out_bias``, ``mlp_bias``), the norm of ``norm``
+    (RMSNorm, LayerNorm or OLMo's non-parametric LayerNorm), an output head
+    of its own or tied to the embedding (``tie_embeddings``), a
+    mixture-of-experts FFN on the layers ``ffn_kind`` names (``moe``), a
+    prefix of ``n_prefix_tokens`` patch embeddings ahead of the tokens
+    (``vlm``), and an encoder of ``n_encoder_layers`` over ``encoder_seq``
+    frames with cross-attention in every decoder layer
+    (``is_encoder_decoder``).  These cover the reference's dense family
+    (llama3-8b, yi-9b, olmo-1b), its ``moe`` family (deepseek-moe-16b,
+    qwen2-moe-a2.7b), its ``vlm`` family (internvl2-1b) and its ``encdec``
+    family (whisper-small).  The reference's Mamba, RWKV and sharding
+    fields (``tp_style`` among them) come with the families and the
+    sharding that set them.
 
     The training fields are the reference's, with two left out: its
     ``scan_layers`` chooses how XLA compiles the layer stack, and the port
@@ -82,7 +88,7 @@ class ModelConfig:
     ``OptimizerConfig.state_dtype``, the one field the port reads for the
     AdamW moments' dtype."""
     name: str
-    family: str                   # dense | moe (the ported families)
+    family: str                   # dense | moe | vlm | encdec (the ported families)
     n_layers: int
     d_model: int
     n_heads: int
@@ -93,9 +99,19 @@ class ModelConfig:
     norm: str = "rmsnorm"         # rmsnorm | layernorm | nonparam_ln
     act: str = "silu"             # silu -> SwiGLU MLP; gelu / relu_sq -> 2-matrix MLP
     qkv_bias: bool = False        # bq/bk/bv added before RoPE (Qwen)
+    attn_out_bias: bool = False   # bo after the output projection
+    mlp_bias: bool = False        # b_up / b_down of the 2-matrix MLP
+    pos: str = "rope"             # rope | learned | none
     rope_theta: float = 10000.0
+    max_position: int = 1 << 20
     tie_embeddings: bool = False  # the head is embed.T (no "head" leaf)
     moe: Optional[MoEConfig] = None
+    # --- encoder-decoder -------------------------------------------------
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0          # fixed encoder frame count (whisper stub: 1500)
+    # --- vlm --------------------------------------------------------------
+    n_prefix_tokens: int = 0      # patch-embedding prefix length (internvl stub)
     dtype: str = "bfloat16"       # activation / cache dtype
     param_dtype: str = "bfloat16"
     # --- training -------------------------------------------------------
@@ -121,19 +137,30 @@ class ModelConfig:
                 else "dense")
 
     def n_params(self) -> int:
-        """Analytical parameter count (embedding, blocks, head), the
-        reference's formula for the ported families."""
+        """Analytical parameter count (embedding, learned positions,
+        blocks, an encoder's blocks and its decoder's cross-attention,
+        head), the reference's formula for the ported families."""
         return self._count_params(active=False)
 
     def n_active_params(self) -> int:
         """Parameters a token passes through: a MoE layer counts its top-k
-        routed experts, its shared experts and its router."""
+        routed experts, its shared experts and its router; without experts
+        it is ``n_params()``, as in the reference."""
+        if self.moe is None:
+            return self.n_params()
         return self._count_params(active=True)
 
     def _count_params(self, active: bool) -> int:
         n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        # the reference's active count (MoE only) has no positional table,
+        # encoder or cross-attention
+        encdec = self.is_encoder_decoder and not active
+        if self.pos == "learned" and not active:
+            n += self.max_position_learned() * self.d_model
         for idx in range(self.n_layers):
             n += self._attn_params()
+            if encdec:
+                n += self._attn_params()                # cross attention
             if self.ffn_kind(idx) == "dense":
                 n += self._mlp_params(self.d_ff)
             else:
@@ -141,7 +168,14 @@ class ModelConfig:
                 experts = (m.top_k if active else m.n_routed) + m.n_shared
                 n += experts * self._mlp_params(m.d_expert)
                 n += self.d_model * m.n_routed          # router
+        if encdec:
+            n += self.n_encoder_layers * (self._attn_params()
+                                          + self._mlp_params(self.d_ff))
         return n
+
+    def max_position_learned(self) -> int:
+        """Rows of the learned positional table."""
+        return min(self.max_position, 1 << 16)
 
     def _attn_params(self) -> int:
         d, H, Kv, dh = self.d_model, self.n_heads, self.n_kv_heads, self.d_head

@@ -49,24 +49,29 @@ def _zeros(shape, dtype, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+def packed_side(cfg, swan, rows: Tuple[int, ...], device) -> Params:
+    """Zeroed packed vectors of one side (k or v) over ``rows`` (e.g.
+    [B, Kv, S]; the reference's ``_side``): 'vals' [*rows, k_max] in the
+    value dtype, 'idx' int8 in topk mode, 'scale' f32 [*rows] with int8
+    values."""
+    k = swan.k_max
+    d: Params = {"vals": _zeros((*rows, k), _val_dtype(cfg, swan), device)}
+    if swan.mode == "topk":
+        d["idx"] = torch.zeros((*rows, k), dtype=torch.int8, device=device)
+    if swan.quantize and swan.quant_dtype == "int8":
+        d["scale"] = torch.zeros(rows, dtype=torch.float32, device=device)
+    return d
+
+
 def init_swan_cache(cfg, swan, batch: int, max_seq: int, device,
                     lead: Tuple[int, ...] = ()) -> Params:
     """Allocate one layer's hybrid cache (``lead`` prepends e.g. the [L]
     axis of the stacked serve state)."""
-    Kv, dh, b, k = cfg.n_kv_heads, cfg.d_head, swan.buffer, swan.k_max
-    vdt = _val_dtype(cfg, swan)
+    Kv, dh, b = cfg.n_kv_heads, cfg.d_head, swan.buffer
     cdt = torch_dtype(cfg.dtype)
 
     def side() -> Params:
-        d: Params = {"vals": _zeros((*lead, batch, Kv, max_seq, k), vdt,
-                                    device)}
-        if swan.mode == "topk":
-            d["idx"] = torch.zeros((*lead, batch, Kv, max_seq, k),
-                                   dtype=torch.int8, device=device)
-        if swan.quantize and swan.quant_dtype == "int8":
-            d["scale"] = torch.zeros((*lead, batch, Kv, max_seq),
-                                     dtype=torch.float32, device=device)
-        return d
+        return packed_side(cfg, swan, (*lead, batch, Kv, max_seq), device)
 
     return {
         "k": side(), "v": side(),

@@ -29,10 +29,10 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.core.hybrid_cache import (_bits, _val_dtype, _zeros,
-                                           chunk_evict_winnow,
+from repro_torch.core.hybrid_cache import (_bits, chunk_evict_winnow,
                                            decode_evict_winnow,
-                                           packed_vector_bytes, write_lanes_)
+                                           packed_side, packed_vector_bytes,
+                                           write_lanes_)
 from repro_torch.models.common import torch_dtype
 
 Params = Dict[str, Any]
@@ -48,19 +48,9 @@ def init_paged_pool(cfg, swan, n_pages: int, page_size: int, device,
                     lead: Tuple[int, ...] = ()) -> Params:
     """Allocate one layer's page pool, both sides (``lead`` prepends e.g.
     the [L] axis of the stacked serve state)."""
-    Kv, k = cfg.n_kv_heads, swan.k_max
-    vdt = _val_dtype(cfg, swan)
-
     def side() -> Params:
-        d: Params = {"vals": _zeros((*lead, n_pages, Kv, page_size, k), vdt,
-                                    device)}
-        if swan.mode == "topk":
-            d["idx"] = torch.zeros((*lead, n_pages, Kv, page_size, k),
-                                   dtype=torch.int8, device=device)
-        if swan.quantize and swan.quant_dtype == "int8":
-            d["scale"] = torch.zeros((*lead, n_pages, Kv, page_size),
-                                     dtype=torch.float32, device=device)
-        return d
+        return packed_side(cfg, swan, (*lead, n_pages, cfg.n_kv_heads,
+                                       page_size), device)
 
     return {"k": side(), "v": side()}
 

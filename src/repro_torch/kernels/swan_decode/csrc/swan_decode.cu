@@ -688,6 +688,8 @@ cudaError_t launch_g(int G, const void* q, const void* kv, const void* ki, const
                      int dh, int S, int k, int b, int ps, int np, cudaStream_t st) {
 #define SWAN_G_ARGS q, kv, ki, vv, vi, ks, vs, bk, bv, bp, pos, sp, tab, out, ws, wsb, B, Kv, \
                     dh, S, k, b, ps, np, st
+  // Any other G is served by the wrapper (swan_decode.py:g_plan): zero query
+  // rows pad it to the next instance, and G > 8 is cut into groups of <= 8.
   switch (G) {
     case 1: return launch<QT, VT, 1>(SWAN_G_ARGS);
     case 2: return launch<QT, VT, 2>(SWAN_G_ARGS);

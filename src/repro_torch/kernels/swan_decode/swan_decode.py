@@ -17,12 +17,20 @@ for CPU tensors they run the plain twins (``swan_decode_reference``, after
 ``gather_pages`` for the pool).  The wrapper allocates the splits' f32
 workspace; the launch reads nothing back to the host.
 Arguments are checked the same way on both devices.
+
+The CUDA source holds instances for query groups of 1, 2, 4 and 8 heads
+(``INSTANCES``); the TPU kernel takes any G.  ``g_plan`` maps any G >= 1
+onto them: G <= 8 pads q with zero query rows up to the next instance
+(3 -> 4; 5, 6, 7 -> 8), and G > 8 is cut into ceil(G / 8) equal groups of
+consecutive heads, one launch each over the same cache.  A zero query row
+scores 0 on every key, so its (discarded) output stays finite and the
+real rows are untouched: each row's softmax is its own.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -49,7 +57,7 @@ def swan_decode_paged_plain(q, pool_k_vals, pool_k_idx, pool_v_vals,
 _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _V_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
             torch.float8_e4m3fn: 3}
-SUPPORTED_G = (1, 2, 4, 8)
+INSTANCES = (1, 2, 4, 8)                 # the G instances of the CUDA source
 # mirrors of the CUDA source's constants
 N_WARPS = 8                              # kWarps
 TILE_ROWS = 32                           # kTile: packed rows per staged tile
@@ -77,6 +85,40 @@ KERNEL_PAGED = CudaKernel("swan_decode_paged", LIBRARY)     # page pool (B2)
 
 def _a16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+def g_plan(G: int) -> Tuple[int, int, int]:
+    """How the kernels serve a query group of ``G`` heads: ``(instance,
+    groups, per)`` -- ``groups`` launches of the CUDA instance ``instance``
+    (one of ``INSTANCES``), launch ``j`` over query heads ``[j*per,
+    min((j+1)*per, G))`` with zero rows padding it to ``instance``."""
+    if G < 1:
+        raise ValueError(f"query group G={G} must be >= 1")
+    groups = -(-G // INSTANCES[-1])
+    per = -(-G // groups)
+    return next(i for i in INSTANCES if i >= per), groups, per
+
+
+def run_grouped(q: torch.Tensor, fn: Callable[[torch.Tensor], torch.Tensor]
+                ) -> torch.Tensor:
+    """``fn`` (one launch on q [B,Kv,instance,dh]) applied by ``g_plan``:
+    q's heads padded with zero rows and cut into groups, one call each,
+    and the outputs' real rows put back as [B,Kv,G,dh].  An instance's own
+    G is one call on q itself."""
+    B, Kv, G, dh = q.shape
+    inst, groups, per = g_plan(G)
+    if inst == G:
+        return fn(q)
+    if groups == 1:                     # G <= 8: one launch, zero rows below
+        qp = q.new_zeros((B, Kv, inst, dh))
+        qp[:, :, :G] = q
+        return fn(qp)[:, :, :G]
+    flat = q.new_zeros((B, Kv, groups * per, dh))
+    flat[:, :, :G] = q
+    qp = q.new_zeros((groups, B, Kv, inst, dh))
+    qp[:, :, :, :per] = flat.view(B, Kv, groups, per, dh).permute(2, 0, 1, 3, 4)
+    out = torch.stack([fn(qp[j]) for j in range(groups)])[:, :, :, :per]
+    return out.permute(1, 2, 0, 3, 4).reshape(B, Kv, groups * per, dh)[:, :, :G]
 
 
 def smem_bytes(G: int, dh: int, b: int, k: int, v_dtype: torch.dtype) -> int:
@@ -118,30 +160,36 @@ def precheck(*, G: int, dh: int, k_max: int, b: int, v_dtype: torch.dtype,
     budgeted against a Hopper block's shared memory for ``v_dtype`` values).
     ``S`` is the sparse extent (``Pg * page_size`` for the paged kernel): it
     sets the number of splits, so the grid and the merge kernel's shared
-    memory.  Returns ``{"errors": [...], "smem_bytes": int,
-    "merge_smem_bytes": int, "workspace_bytes": int}``, the workspace per
-    (sequence, kv head)."""
+    memory.  Any G >= 1 is served by ``g_plan``: the budget is that of its
+    instance.  Returns ``{"errors": [...], "instance": int, "groups": int,
+    "smem_bytes": int, "merge_smem_bytes": int, "workspace_bytes": int}``,
+    the workspace per (sequence, kv head) over all the groups' launches."""
     errors: List[str] = []
     if not 1 <= k_max <= dh:
         errors.append(f"k_max={k_max} must lie in [1, dh={dh}]")
     if dh > MAX_DH:
         errors.append(f"dh={dh} > {MAX_DH}: int8 indices cannot address it")
-    if G not in SUPPORTED_G:
-        errors.append(f"query group G={G} not in {SUPPORTED_G}")
+    if G < 1:
+        errors.append(f"query group G={G} must be >= 1")
+        return {"errors": errors}
+    inst, groups, _ = g_plan(G)
     if b < 1:
         errors.append("empty ring (b=0): the kernel needs b >= 1")
     if n_splits(S) + 1 > MAX_GRID_Y:
         errors.append(f"S={S} needs {n_splits(S) + 1} splits > {MAX_GRID_Y}")
-    smem = smem_bytes(G, dh, b, k_max, v_dtype)
+    smem = smem_bytes(inst, dh, b, k_max, v_dtype)
     if smem > SMEM_PER_BLOCK:
         errors.append(f"shared memory {smem} B exceeds {SMEM_PER_BLOCK} B "
-                      f"(G={G}, dh={dh}, b={b}, k={k_max}, {v_dtype})")
-    merge = merge_smem_bytes(G, S)
+                      f"(G={G} as {groups} x {inst}, dh={dh}, b={b}, "
+                      f"k={k_max}, {v_dtype})")
+    merge = merge_smem_bytes(inst, S)
     if merge > SMEM_PER_BLOCK:
         errors.append(f"the merge kernel's shared memory {merge} B exceeds "
-                      f"{SMEM_PER_BLOCK} B (G={G}, {n_splits(S)} splits)")
-    return {"errors": errors, "smem_bytes": smem, "merge_smem_bytes": merge,
-            "workspace_bytes": workspace_bytes(1, 1, G, dh, S)}
+                      f"{SMEM_PER_BLOCK} B (G={G} as {groups} x {inst}, "
+                      f"{n_splits(S)} splits)")
+    return {"errors": errors, "instance": inst, "groups": groups,
+            "smem_bytes": smem, "merge_smem_bytes": merge,
+            "workspace_bytes": groups * workspace_bytes(1, 1, inst, dh, S)}
 
 
 def _check(q, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
@@ -211,10 +259,20 @@ def _launch(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, buf_k,
             buf_v, buf_pos, pos, sp_len, k_scale, v_scale,
             page_tab) -> torch.Tensor:
     """Launch the decode kernels (splits, then their merge) on q's stream
-    (slab when ``page_tab`` is None), with a workspace from ``torch.empty``
-    on that stream; raises on a refused launch and counts the launch."""
+    (slab when ``page_tab`` is None) once per group of ``g_plan``, each
+    with a workspace from ``torch.empty`` on that stream; raises on a
+    refused launch and counts each launch."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    return run_grouped(q, lambda qg: _launch_one(
+        kernel, qg, k_vals, k_idx, v_vals, v_idx, buf_k, buf_v, buf_pos, pos,
+        sp_len, k_scale, v_scale, page_tab))
+
+
+def _launch_one(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, buf_k,
+                buf_v, buf_pos, pos, sp_len, k_scale, v_scale,
+                page_tab) -> torch.Tensor:
+    """One launch of the instance of q's G (one of ``INSTANCES``)."""
     B, Kv, G, dh = q.shape
     k = k_vals.shape[3]
     if page_tab is None:

@@ -18,8 +18,15 @@ concurrent prefill).
 ``--arch`` is any arch of the port's registry: llama3-8b, yi-9b (GQA, 8
 queries per kv head), olmo-1b (MHA, non-parametric LayerNorm, tied
 embeddings), deepseek-moe-16b or qwen2-moe-a2.7b (mixture-of-experts
-FFNs; qwen2 with q/k/v biases), each at its full published configuration
-or, with ``--smoke``, its small one.  ``--pool-pages`` (the reference's
+FFNs; qwen2 with q/k/v biases), internvl2-1b (7 queries per kv head; the
+lockstep prompt carries 256 patch embeddings ahead of its tokens, the
+engine's requests tokens only) or whisper-small (an encoder over 1500
+frames, cross-attention; lockstep only: ``--engine`` is refused, as by
+the reference), each at its full published configuration or, with
+``--smoke``, its small one.  internvl2-1b's lockstep tokens differ from
+the reference launcher's on the same weights by design: the reference's
+session decodes its first token at the token count, inside the patch
+prefix, and the port's at the prefill's full length.  ``--pool-pages`` (the reference's
 flag) sizes the paged pool below the full reservation.
 
 run on the card, where every dispatch replays a CUDA graph per shape

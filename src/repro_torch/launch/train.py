@@ -7,9 +7,12 @@ trains the small configuration on the CPU; without ``--device cpu`` the
 run is on the card.  ``--arch`` is llama3-8b, yi-9b, olmo-1b (whose
 tied embedding takes the gradients of both its uses), deepseek-moe-16b
 or qwen2-moe-a2.7b (whose loss adds the experts' load-balance and router
-z-losses); without ``--smoke`` each is its full configuration, which for
-all but olmo-1b needs more memory than one card holds with f32 AdamW
-moments.
+z-losses) or internvl2-1b (trained, as by the reference's trainer, on
+token batches without patch embeddings); without ``--smoke`` each is its
+full configuration, which for all but olmo-1b and internvl2-1b needs more
+memory than one card holds with f32 AdamW moments.  whisper-small is
+refused: the token stream carries no encoder frames (the reference's
+trainer fails on it with ``KeyError: 'frames'``).
 """
 from __future__ import annotations
 
@@ -44,6 +47,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        raise SystemExit(f"{cfg.name}: the training stream holds tokens "
+                         "only, and an encoder-decoder needs encoder frames")
     if args.grad_accum:
         cfg = cfg.replace(grad_accum=args.grad_accum)
     tc = TrainConfig(

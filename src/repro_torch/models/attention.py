@@ -1,18 +1,20 @@
 """Grouped-query attention with RoPE and the dense KV cache (baseline).
 
 Port of ``repro.models.attention``: projections, plain and blocked
-(online-softmax) causal attention for prefill, and single-token decode
+(online-softmax) attention, causal for prefill and non-causal for an
+encoder or a cross-attention (``attn_forward``), and single-token decode
 against a dense cache.  SWAN decode lives in
 ``repro_torch.core.swan_attention``.
 
 Parameter layout (per layer):
   wq: [d, H*dh]   wk: [d, Kv*dh]   wv: [d, Kv*dh]   wo: [H*dh, d]
-  (+ bq: [H*dh], bk/bv: [Kv*dh] with ``cfg.qkv_bias``; no output bias)
+  (+ bq: [H*dh], bk/bv: [Kv*dh] with ``cfg.qkv_bias``; bo: [d] with
+  ``cfg.attn_out_bias``)
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -25,24 +27,30 @@ DENSE_ATTN_MAX_SEQ = 2048     # above this, use blocked attention
 ATTN_BLOCK = 512              # kv block for blocked attention
 
 
-def project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor
+def project_qkv(p: Params, cfg, x: torch.Tensor,
+                positions: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> q [B, S, H, dh], k/v [B, S, Kv, dh]; the biases
-    (when the params hold them) are added before RoPE."""
+    (when the params hold them) are added before RoPE, which applies when
+    ``cfg.pos`` is "rope" and ``positions`` are given."""
     B, S, _ = x.shape
     H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(B, S, H, dh), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, Kv, dh), positions, cfg.rope_theta)
+    q, k = q.reshape(B, S, H, dh), k.reshape(B, S, Kv, dh)
+    if cfg.pos == "rope" and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, Kv, dh)
 
 
 def output_proj(p: Params, o: torch.Tensor) -> torch.Tensor:
-    """o: [B, S, H, dh] -> [B, S, d]."""
+    """o: [B, S, H, dh] -> [B, S, d] (plus ``bo`` where the params hold
+    it)."""
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"]
+    y = o.reshape(B, S, -1) @ p["wo"]
+    return y + p["bo"] if "bo" in p else y
 
 
 def _expand_kv(k: torch.Tensor, group: int) -> torch.Tensor:
@@ -120,13 +128,48 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> torch.Tensor:
+    """Full attention, dense up to DENSE_ATTN_MAX_SEQ queries and keys,
+    blocked above (the reference's split: ``attention.py:201-204``)."""
+    if max(q.shape[1], k.shape[1]) > DENSE_ATTN_MAX_SEQ:
+        return blocked_attention(q, k, v, causal=causal)
+    return dense_attention(q, k, v, causal=causal)
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
-    """Prefill attention, dense up to DENSE_ATTN_MAX_SEQ keys, blocked above
-    (the reference's split: ``transformer.py:317-320``)."""
-    if max(q.shape[1], k.shape[1]) > DENSE_ATTN_MAX_SEQ:
-        return blocked_attention(q, k, v, causal=True)
-    return dense_attention(q, k, v, causal=True)
+    """Prefill attention (the reference's ``transformer.py:317-320``)."""
+    return attention(q, k, v, causal=True)
+
+
+def cross_kv(p: Params, cfg, kv_x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys and values [B, Sk, Kv, dh] of a cross-attention from the
+    encoder's stream ``kv_x`` [B, Sk, d] (biases added, no RoPE)."""
+    B, Sk, _ = kv_x.shape
+    k, v = kv_x @ p["wk"], kv_x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head),
+            v.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head))
+
+
+def attn_forward(p: Params, cfg, x: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 causal: bool = True,
+                 kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full attention of x [B, S, d] (the reference's ``attn_forward``):
+    self-attention, causal or not (an encoder's), or with ``kv_x`` a
+    non-causal cross-attention over its keys and values."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    q, k, v = project_qkv(p, cfg, x, positions)
+    if kv_x is not None:
+        k, v = cross_kv(p, cfg, kv_x)
+        causal = False
+    return output_proj(p, attention(q, k, v, causal))
 
 
 # ---------------------------------------------------------------------------

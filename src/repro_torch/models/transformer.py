@@ -1,8 +1,10 @@
-"""Decoder-only transformer LM, dense and MoE families: the training
+"""Decoder-only transformer LM, dense, MoE and VLM families: the training
 forward (with remat, and the MoE layers' auxiliary losses) and loss, SWAN
 calibration capture and absorption, and serving (prefill, batched chunked
 prefill and decode over a dense cache or a SWAN hybrid cache, slab or
-paged).
+paged).  A VLM's patch embeddings (``prefix_embeds`` [B, P, d]) go ahead
+of the tokens in the forward, the calibration capture and the prefill,
+and its loss leaves their positions out.
 
 Port of ``repro.models.transformer``.  Parameters are nested dicts with
 stacked ``[L, ...]`` layer leaves, as in the reference; its ``scan`` over
@@ -43,59 +45,92 @@ Params = Dict[str, Any]
 # Init
 # ---------------------------------------------------------------------------
 
+def stacked_weight(cfg, L: int, d_in: int, d_out: int, gen: torch.Generator,
+                   dev, scale: Optional[float] = None) -> torch.Tensor:
+    """A stacked [L, d_in, d_out] leaf in ``cfg.param_dtype``, filled layer
+    by layer with fan-in weights (``dense_init_``)."""
+    w = torch.empty((L, d_in, d_out), dtype=torch_dtype(cfg.param_dtype),
+                    device=dev)
+    for i in range(L):
+        dense_init_(w[i], gen, scale)
+    return w
+
+
+def init_attn_params(cfg, L: int, gen: torch.Generator, dev) -> Params:
+    """A stacked attention block (the reference's ``init_attn_params``):
+    wq, wk, wv, wo drawn in that order; zero q/k/v biases with
+    ``cfg.qkv_bias`` and a zero output bias with ``cfg.attn_out_bias``."""
+    d, H, Kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    def zeros(n):
+        return torch.zeros((L, n), dtype=torch_dtype(cfg.param_dtype),
+                           device=dev)
+
+    p = {n: stacked_weight(cfg, L, d_in, d_out, gen, dev, scale)
+         for n, d_in, d_out, scale in (
+             ("wq", d, H * dh, None), ("wk", d, Kv * dh, None),
+             ("wv", d, Kv * dh, None), ("wo", H * dh, d, (H * dh) ** -0.5))}
+    if cfg.qkv_bias:
+        p.update(bq=zeros(H * dh), bk=zeros(Kv * dh), bv=zeros(Kv * dh))
+    if cfg.attn_out_bias:
+        p["bo"] = zeros(d)
+    return p
+
+
+def init_mlp_params(cfg, L: int, gen: torch.Generator, dev) -> Params:
+    """A stacked MLP of width ``cfg.d_ff`` (the reference's
+    ``init_mlp_params``): SwiGLU's gate beside w_up for ``act='silu'``,
+    zero biases with ``cfg.mlp_bias``."""
+    d, ff = cfg.d_model, cfg.d_ff
+    p = {}
+    if cfg.act == "silu":                    # SwiGLU: a gate beside w_up
+        p["w_gate"] = stacked_weight(cfg, L, d, ff, gen, dev)
+    p["w_up"] = stacked_weight(cfg, L, d, ff, gen, dev)
+    p["w_down"] = stacked_weight(cfg, L, ff, d, gen, dev, ff ** -0.5)
+    if cfg.mlp_bias:
+        pdt = torch_dtype(cfg.param_dtype)
+        p["b_up"] = torch.zeros((L, ff), dtype=pdt, device=dev)
+        p["b_down"] = torch.zeros((L, d), dtype=pdt, device=dev)
+    return p
+
+
 def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device`` (the
     card by default), with the reference's init distributions.  Each
     stacked leaf is allocated once and filled layer by layer.  Norms
     follow ``cfg.norm`` (no leaves for ``nonparam_ln``); with
     ``cfg.tie_embeddings`` there is no "head" leaf, as in the reference:
-    the head is ``embed.T``.  ``cfg.qkv_bias`` adds zero q/k/v biases;
-    layers whose ``ffn_kind`` is "moe" hold an "experts" subtree in place
-    of "mlp" (``models.moe``).  The stacked layout needs one FFN kind on
-    every layer, as the reference's does."""
+    the head is ``embed.T``.  The bias flags add zero biases; layers whose
+    ``ffn_kind`` is "moe" hold an "experts" subtree in place of "mlp"
+    (``models.moe``); ``cfg.pos == "learned"`` adds a "pos_embed" table.
+    The stacked layout needs one FFN kind on every layer, as the
+    reference's does."""
     dev = resolve_device(device)
     kinds = {cfg.ffn_kind(i) for i in range(cfg.n_layers)}
     if len(kinds) > 1:
         raise ValueError(f"{cfg.name}: the stacked layer layout needs one "
                          f"FFN kind on every layer, got {sorted(kinds)}")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    H, Kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     pdt = torch_dtype(cfg.param_dtype)
 
     def empty(*shape):
         return torch.empty(shape, dtype=pdt, device=dev)
 
-    def stacked(d_in, d_out, scale=None):
-        w = empty(L, d_in, d_out)
-        for i in range(L):
-            dense_init_(w[i], gen, scale)
-        return w
-
-    layers = {
-        "ln1": init_norm(cfg, (L,), dev),
-        "attn": {"wq": stacked(d, H * dh), "wk": stacked(d, Kv * dh),
-                 "wv": stacked(d, Kv * dh),
-                 "wo": stacked(H * dh, d, (H * dh) ** -0.5)},
-        "ln2": init_norm(cfg, (L,), dev),
-    }
-    if cfg.qkv_bias:
-        layers["attn"].update(
-            bq=torch.zeros((L, H * dh), dtype=pdt, device=dev),
-            bk=torch.zeros((L, Kv * dh), dtype=pdt, device=dev),
-            bv=torch.zeros((L, Kv * dh), dtype=pdt, device=dev))
+    layers = {"ln1": init_norm(cfg, (L,), dev),
+              "attn": init_attn_params(cfg, L, gen, dev),
+              "ln2": init_norm(cfg, (L,), dev)}
     if kinds == {"moe"}:
         layers["experts"] = moe_mod.init_moe_params(cfg, L, gen, dev)
     else:
-        layers["mlp"] = {}
-        if cfg.act == "silu":                # SwiGLU: a gate beside w_up
-            layers["mlp"]["w_gate"] = stacked(d, ff)
-        layers["mlp"].update(w_up=stacked(d, ff),
-                             w_down=stacked(ff, d, ff ** -0.5))
+        layers["mlp"] = init_mlp_params(cfg, L, gen, dev)
     p = {"embed": embed_init_(empty(V, d), gen), "layers": layers,
          "ln_f": init_norm(cfg, (), dev)}
     if not cfg.tie_embeddings:
         p["head"] = embed_init_(empty(d, V), gen)    # the reference's embed.T
+    if cfg.pos == "learned":
+        p["pos_embed"] = embed_init_(empty(cfg.max_position_learned(), d),
+                                     gen)
     return p
 
 
@@ -112,11 +147,29 @@ def layer_params(p: Params, i: int) -> Params:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _embed(p: Params, cfg, tokens: torch.Tensor
+def learned_positions(table: torch.Tensor, positions: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Rows ``positions`` of a learned positional table, clamped to its
+    last row as in the reference (and a dead lane's -1 to row 0), in
+    ``dtype``."""
+    return table[torch.clamp(positions.long(), 0, table.shape[0] - 1)
+                 ].to(dtype)
+
+
+def _embed(p: Params, cfg, tokens: torch.Tensor,
+           prefix_embeds: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The input stream [B, P + S, d] and its positions: the patch
+    embeddings (if any) ahead of the token embeddings, plus the learned
+    positions where ``cfg.pos`` says so (the reference's
+    ``_embed_inputs``)."""
     x = p["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
-    B, S = tokens.shape
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.pos == "learned":
+        x = x + learned_positions(p["pos_embed"], positions, x.dtype)
     return x, positions
 
 
@@ -189,13 +242,14 @@ def _remat(body, cfg):
                                          **kw)
 
 
-def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor
+def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor,
+                   prefix_embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V], the MoE layers' summed aux loss
-    (0 for the dense family)).  Differentiable in ``p``; with
-    ``cfg.remat``, under autograd, each layer is recomputed in the
-    backward."""
-    x, positions = _embed(p, cfg, tokens)
+    """tokens [B, S] (after ``prefix_embeds`` [B, P, d], if given) ->
+    (logits [B, P + S, V], the MoE layers' summed aux loss (0 without
+    experts)).  Differentiable in ``p``; with ``cfg.remat``, under
+    autograd, each layer is recomputed in the backward."""
+    x, positions = _embed(p, cfg, tokens, prefix_embeds)
     body = _remat(_layer_forward, cfg) if torch.is_grad_enabled() \
         else _layer_forward
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -205,15 +259,18 @@ def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor
     return _head(p, cfg, x), aux
 
 
-def lm_forward(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] (``lm_forward_aux`` without the
-    aux loss)."""
-    return lm_forward_aux(p, cfg, tokens)[0]
+def lm_forward(p: Params, cfg, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, P + S, V] (``lm_forward_aux`` without
+    the aux loss)."""
+    return lm_forward_aux(p, cfg, tokens, prefix_embeds)[0]
 
 
 def _logz_gold(logits: torch.Tensor, tokens: torch.Tensor):
-    """f32 log-partition and gold logit of each next-token prediction."""
-    lg = logits[:, :-1].float()
+    """f32 log-partition and gold logit of each next-token prediction; the
+    logits of a prefix ahead of the tokens (a VLM's patch positions) are
+    left out."""
+    lg = logits[:, logits.shape[1] - tokens.shape[1]:][:, :-1].float()
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tokens[:, 1:].long()[..., None])[..., 0]
     return logz, gold
@@ -238,9 +295,11 @@ def lm_loss(p: Params, cfg, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy and z-loss of ``batch["tokens"]`` as sums
     over the target positions that ``batch["loss_mask"]`` [B, S] keeps
-    (all when absent), divided by their count, plus the MoE aux loss."""
+    (all when absent), divided by their count, plus the MoE aux loss; a
+    VLM's ``batch["prefix_embeds"]`` go ahead of the tokens and their
+    positions are left out."""
     tokens = batch["tokens"]
-    logits, aux = lm_forward_aux(p, cfg, tokens)
+    logits, aux = lm_forward_aux(p, cfg, tokens, batch.get("prefix_embeds"))
     logz, gold = _logz_gold(logits, tokens)
     mask = batch.get("loss_mask")
     mask = (torch.ones_like(gold) if mask is None
@@ -256,13 +315,14 @@ def lm_loss(p: Params, cfg, batch: Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def collect_qkv(p: Params, cfg, tokens: torch.Tensor):
+def collect_qkv(p: Params, cfg, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None):
     """Run the model, capturing per-layer post-RoPE q/k and v (§4.1.1).
     The layers run as in training (MoE layers drop past capacity), as in
-    the reference.
+    the reference; a VLM's prefix positions are captured too.
 
     Returns (q [L,B,S,H,dh], k [L,B,S,Kv,dh], v [L,B,S,Kv,dh], wo [L,H·dh,d])."""
-    x, positions = _embed(p, cfg, tokens)
+    x, positions = _embed(p, cfg, tokens, prefix_embeds)
     qs, ks, vs = [], [], []
     for i in range(cfg.n_layers):
         x, _, (q, k, v) = _layer_qkv_forward(layer_params(p, i), cfg, x,
@@ -387,17 +447,19 @@ def _swan_layer_prefill(lp: Params, p_qk_l, cache_l: Params, cfg, swan,
 @torch.no_grad()
 def lm_prefill(p: Params, cfg, tokens: torch.Tensor, caches: Params,
                swan=None, projections: Optional[Params] = None,
+               prefix_embeds: Optional[torch.Tensor] = None,
                k_active: Optional[int] = None, true_len: Optional[int] = None
                ) -> Tuple[torch.Tensor, Params]:
-    """Process the prompt [B, S], filling ``caches`` in place.  Returns
-    (last-token logits [B, 1, V], caches).
+    """Process the prompt [B, S] (after ``prefix_embeds`` [B, P, d], if
+    given: the cache then holds P + S positions), filling ``caches`` in
+    place.  Returns (last-token logits [B, 1, V], caches).
 
     ``k_active`` (an int, or a 0-d device tensor) caps the SWAN retention
     of the whole prompt (per-request k).  ``true_len`` (an int, or a 0-d
     device tensor) is the real prompt length when ``tokens`` is padded to
     a bucket: the logits are taken at true_len - 1 (a device gather) and
     the ring is anchored there."""
-    x, positions = _embed(p, cfg, tokens)
+    x, positions = _embed(p, cfg, tokens, prefix_embeds)
     use_swan = swan is not None and swan.enabled
     k_layers = _k_per_layer(cfg, swan, projections) if use_swan else None
     if use_swan and k_active is not None:
@@ -571,6 +633,8 @@ def lm_prefill_chunk_batched(p: Params, cfg, tokens: torch.Tensor,
                                        caches["k"].shape[3])
     x = p["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
     positions = lanes["start"][:, None] + torch.arange(S, device=dev)[None]
+    if cfg.pos == "learned":
+        x = x + learned_positions(p["pos_embed"], positions, x.dtype)
     k_layers = _k_per_layer(cfg, swan, projections) if use_swan else None
     k_req = None if k_active is None else lane_vec(k_active)
     for i in range(cfg.n_layers):
@@ -606,6 +670,8 @@ def lm_decode_step(p: Params, cfg, token: torch.Tensor, pos, caches: Params,
     B = token.shape[0]
     x = p["embed"][token.long()[:, None]].to(torch_dtype(cfg.dtype))
     pos = hc.per_seq_pos(pos, B, x.device)
+    if cfg.pos == "learned":
+        x = x + learned_positions(p["pos_embed"], pos[:, None], x.dtype)
     use_swan = swan is not None and swan.enabled
     if page_tab is not None and not use_swan:
         raise ValueError("page_tab given but SWAN disabled — only the "

@@ -190,7 +190,9 @@ class ServeEngine:
     ``projections`` must live there.  ``graphs`` (None: on for a CUDA
     device) dispatches through CUDA graphs; ``graphs=True`` without a
     card raises.  ``metrics``: True (a fresh registry), False (the no-op
-    registry) or a registry to share; ``trace``: an event sink or None."""
+    registry) or a registry to share; ``trace``: an event sink or None.
+    Requests are token prompts: a VLM is served without patch embeddings,
+    and an encoder-decoder config is refused, as in the reference."""
 
     def __init__(self, cfg, params, swan=None, projections=None,
                  max_seq: int = 4096, n_slots: int = 4, paged: bool = False,
@@ -202,6 +204,10 @@ class ServeEngine:
                  graphs: Optional[bool] = None, async_fetch: bool = False,
                  metrics=True, trace: Optional[EventTrace] = None,
                  device: DeviceLike = None):
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "encoder-decoder serving needs per-request encoder frames; "
+                "use the lockstep ServeSession for whisper-style models")
         self.device = resolve_device(device)
         if graphs is None:
             graphs = self.device.type == "cuda"

@@ -99,31 +99,42 @@ class ServeSession:
         self.pos = 0
 
     def prefill(self, batch_in: Params) -> torch.Tensor:
+        """Prefill ``batch_in``: its tokens, and a VLM's ``prefix_embeds``
+        or an encoder-decoder's ``frames`` where it holds them.  The next
+        decode position is the prefill's full length: a VLM's patch
+        positions and its tokens.  (The reference's session continues at
+        the token count, inside the patch prefix; the port does not keep
+        that fault.)"""
         t0 = time.perf_counter()
-        tokens = batch_in["tokens"]
-        if tokens.shape[1] > self.max_seq:
-            raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds "
+        names = [n for n in ("tokens", "prefix_embeds", "frames")
+                 if batch_in.get(n) is not None]
+        ops = [batch_in[n] for n in names]
+        n_prefix = (0 if batch_in.get("prefix_embeds") is None
+                    else batch_in["prefix_embeds"].shape[1])
+        length = batch_in["tokens"].shape[1] + n_prefix
+        if length > self.max_seq:
+            raise ValueError(f"prompt of {length} positions exceeds "
                              f"max_seq={self.max_seq}")
 
-        def fn(tokens):
+        def fn(*ops):
             logits, _ = self.api.prefill(self.params, self.cfg,
-                                         {"tokens": tokens}, self.state,
+                                         dict(zip(names, ops)), self.state,
                                          self.swan, self.projections)
             return logits[:, -1]
         if self._graphs is None:
-            logits = fn(tokens)
+            logits = fn(*ops)
         else:
-            # the capture's zero prompt writes the rows the real one
-            # rewrites
+            # the capture's zero operands write the rows the real ones
+            # rewrite
             logits = self._graphs.run(
-                "prefill", tuple(tokens.shape), fn, [tokens],
-                lambda: [torch.zeros_like(tokens)]).clone()
+                "prefill", tuple(tuple(x.shape) for x in ops), fn, ops,
+                lambda: [torch.zeros_like(x) for x in ops]).clone()
         self.metrics.counter("session_prefill_total", "prefill calls").inc()
         self.metrics.histogram(
             "session_prefill_call_ms", STEP_MS_BUCKETS,
             "host wall-clock of the prefill call (captures show as "
             "outliers)").observe((time.perf_counter() - t0) * 1e3)
-        self.pos = tokens.shape[1]
+        self.pos = length
         return logits
 
     def decode(self, token: torch.Tensor) -> torch.Tensor:

@@ -110,10 +110,12 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
     """The lockstep session, the paged, chunked engine (with its graph
     family enumerated by ``runtime.warmup``), the launcher with
     ``--metrics-out``, ``--trace-out`` and ``--profile-steps``, the serve
-    benchmarks, the kernel microbenchmark (all six kernels' wrappers) and
+    benchmarks, the kernel microbenchmark (all six kernels' wrappers),
     a lockstep session of a MoE smoke config (``models.moe``, q/k/v
-    biases) run on the CPU with neither ``jax`` nor any ``repro.`` or
-    ``benchmarks`` module imported."""
+    biases) and lockstep SWAN sessions of the VLM (patch embeddings, G =
+    7) and the encoder-decoder (``models.encdec``, the compressed cross
+    cache) smoke configs run on the CPU with neither ``jax`` nor any
+    ``repro.`` or ``benchmarks`` module imported."""
     code = (
         "import sys\n"
         "from repro_torch.configs import SwanConfig, get_smoke_config\n"
@@ -166,6 +168,19 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
         "k_max=8, buffer=4), projections=mpj, max_seq=32, batch=2, device='cpu')\n"
         "assert tuple(ms.generate(make_batch(mcfg, 2, 8, device='cpu'), 4)"
         ".shape) == (2, 4)\n"
+        "import repro_torch.models.encdec\n"
+        "for arch in ('internvl2-1b', 'whisper-small'):\n"
+        "    xcfg = get_smoke_config(arch)\n"
+        "    xapi = get_model(xcfg)\n"
+        "    xp = xapi.init_params(xcfg, 0, 'cpu')\n"
+        "    xpj = calibrate_swan(xapi, xcfg, xp, make_batch(xcfg, 2, 16,"
+        " device='cpu'))\n"
+        "    xs = ServeSession(xcfg, xapi.absorb(xp, xcfg, xpj), swan="
+        "SwanConfig(k_max=4, buffer=4, compress_cross_attn=True),"
+        " projections=xpj, max_seq=32, batch=2, device='cpu')\n"
+        "    xo = xs.generate(make_batch(xcfg, 2, 8, device='cpu'), 4)\n"
+        "    assert tuple(xo.shape) == (2, 4), arch\n"
+        "    assert xs.pos == 8 + 3 + xcfg.n_prefix_tokens, (arch, xs.pos)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('repro', 'benchmarks')]\n"
         "assert not bad, bad\n"

@@ -21,7 +21,8 @@ from repro_torch.configs import SwanConfig  # noqa: E402
 from repro_torch.convert import to_torch  # noqa: E402
 from repro_torch.core.swan_attention import swan_decode_attention  # noqa: E402
 from repro_torch.kernels.swan_decode.swan_decode import (  # noqa: E402
-    KERNEL, precheck, swan_decode)
+    INSTANCES, KERNEL, g_plan, precheck, run_grouped, swan_decode,
+    swan_decode_plain, smem_bytes, workspace_bytes)
 
 B, KV, G, DH, S, K, BUF, BS = 2, 2, 2, 16, 32, 8, 8, 16
 
@@ -150,7 +151,18 @@ def test_precheck_budget():
     bf = {"v_dtype": torch.bfloat16, "S": 4096}
     ok = precheck(G=4, dh=128, k_max=64, b=128, **bf)
     assert not ok["errors"] and ok["smem_bytes"] < 48 * 1024
-    assert precheck(G=3, dh=128, k_max=64, b=128, **bf)["errors"]
+    # a G the CUDA source has no instance of runs as the padded plan's
+    # instance: G = 3 as one launch of G = 4, G = 7 as one of G = 8, G = 16
+    # as two of G = 8; the budget is the instance's, the workspace the
+    # groups' together
+    for G, inst, groups in ((3, 4, 1), (7, 8, 1), (16, 8, 2)):
+        got = precheck(G=G, dh=128, k_max=64, b=128, **bf)
+        assert not got["errors"], got
+        assert (got["instance"], got["groups"]) == (inst, groups)
+        assert got["smem_bytes"] == smem_bytes(inst, 128, 128, 64,
+                                               torch.bfloat16)
+        assert got["workspace_bytes"] == groups * workspace_bytes(
+            1, 1, inst, 128, 4096)
     assert precheck(G=4, dh=256, k_max=64, b=128, **bf)["errors"]
     assert precheck(G=4, dh=64, k_max=65, b=128, **bf)["errors"]
     assert precheck(G=8, dh=128, k_max=64, b=8192, **bf)["errors"]   # > 227 KB
@@ -187,3 +199,71 @@ def test_precheck_budget_of_each_value_type(v_dtype, vb):
         assert len(errs) == 1 and "merge" in errs[0]
     assert precheck(G=4, dh=128, k_max=64, b=128, v_dtype=v_dtype,
                     S=256 * 65535)["errors"]      # more splits than a grid holds
+
+
+# G -> (instance, groups, per): pad up to the next instance, or cut G > 8
+# into equal groups of consecutive heads
+PLANS = {1: (1, 1, 1), 2: (2, 1, 2), 3: (4, 1, 3), 4: (4, 1, 4),
+         5: (8, 1, 5), 6: (8, 1, 6), 7: (8, 1, 7), 8: (8, 1, 8),
+         9: (8, 2, 5), 12: (8, 2, 6), 13: (8, 2, 7), 16: (8, 2, 8),
+         17: (8, 3, 6), 24: (8, 3, 8), 25: (8, 4, 7)}
+
+
+def test_g_plan():
+    for G, plan in PLANS.items():
+        assert g_plan(G) == plan, G
+    for G in range(1, 130):
+        inst, groups, per = g_plan(G)
+        assert inst in INSTANCES and per <= inst
+        assert (groups - 1) * per < G <= groups * per   # no empty launch
+        assert groups == -(-G // 8)
+    with pytest.raises(ValueError):
+        g_plan(0)
+
+
+def test_precheck_refuses_no_group_size():
+    """The Pallas kernel's precheck has no G limit, and neither has the
+    port's: every G >= 1 fits at the serve shapes of every value type."""
+    for v_dtype in (torch.float32, torch.bfloat16, torch.int8,
+                    torch.float8_e4m3fn):
+        for G in range(1, 65):
+            for dh, k in ((128, 64), (64, 32), (64, 64)):
+                got = precheck(G=G, dh=dh, k_max=k, b=128, v_dtype=v_dtype,
+                               S=4096)
+                assert not got["errors"], (G, dh, k, v_dtype, got["errors"])
+
+
+@pytest.mark.parametrize("G", [3, 5, 6, 7, 12, 16])
+@pytest.mark.parametrize("vals_kind", list(VALS))
+def test_grouped_plan_equals_the_whole_group(vals_kind, G):
+    """``run_grouped`` (the padding and grouping the CUDA launch goes
+    through) over the plain twin gives the plain twin on the whole group
+    within f32 rounding (1e-6: the CPU's einsum sums in an order that
+    follows the shape), and the JAX oracle's output within the value
+    type's tolerance: the zero rows change no real row."""
+    a = _inputs(vals_kind, "wrap")
+    rng = np.random.default_rng(G)
+    a["q"] = rng.standard_normal((B, KV, G, DH)).astype(VALS[vals_kind][0])
+    t = to_torch(a, device="cpu")
+    rest = [t[n] for n in ARGS[1:]]
+    kw = {"k_scale": t.get("k_scale"), "v_scale": t.get("v_scale")}
+    whole = swan_decode_plain(t["q"], *rest, **kw)
+    shapes = []
+
+    def one(qg):
+        shapes.append(tuple(qg.shape))
+        return swan_decode_plain(qg, *rest, **kw)
+    grouped = run_grouped(t["q"], one)
+    inst, groups, _ = g_plan(G)
+    assert shapes == [(B, KV, inst, DH)] * groups
+    assert grouped.shape == (B, KV, G, DH) and grouped.dtype == t["q"].dtype
+    np.testing.assert_allclose(grouped.float().numpy(),
+                               whole.float().numpy(), atol=1e-6, rtol=0)
+    j = {n: jnp.asarray(v) for n, v in a.items()}
+    ref = j_reference(*[j[n] for n in ARGS], k_scale=j.get("k_scale"),
+                      v_scale=j.get("v_scale"))
+    np.testing.assert_allclose(grouped.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               atol=VALS[vals_kind][1])
+    # the wrapper takes any G on the CPU too (its plain twin)
+    assert torch.equal(swan_decode(*[t[n] for n in ARGS], **kw), whole)
