@@ -79,10 +79,11 @@ Phases, each of which must pass (any failure exits non-zero):
               then serves the trace with metrics off, on, on, off: the
               same tokens and dispatches, and graphed step ms with
               metrics on and off.
-8. dense   — yi-9b (48 layers, d_model 4096, 32/4 heads: G = 8) and
-              olmo-1b (16 layers, d_model 2048, 16/16 heads: G = 1,
-              non-parametric LayerNorm, tied embeddings) at full width and
-              depth, bf16, seeded weights, each after the llama3-8b model
+8. dense   — yi-9b (d_model 4096, 32/4 heads: G = 8; 24 of its 48
+              layers: the script's time limit) and olmo-1b (16 layers,
+              d_model 2048, 16/16 heads: G = 1, non-parametric LayerNorm,
+              tied embeddings) at full width, bf16, seeded weights, each
+              after the llama3-8b model
               is freed: calibrate, absorb, the lockstep session eager and
               graphed (logits bit for bit or within 5e-2, tokens equal, B1
               once per layer per step through the replays, graphed
@@ -93,10 +94,11 @@ Phases, each of which must pass (any failure exits non-zero):
               capture's warm run); then 4 layers at full retention
               against the dense cache (decode; two-chunk prefill, slab and
               paged).  Seconds per part printed.
-   moe     — deepseek-moe-16b (28 layers, 64 routed experts, top-6, 2
-              shared) and qwen2-moe-a2.7b (24 layers, 60 routed, top-4, 4
-              shared, q/k/v biases seeded N(0, 0.02)), both d_model 2048
-              and 16/16 heads (G = 1), at full width and depth, bf16,
+   moe     — deepseek-moe-16b (64 routed experts, top-6, 2 shared) and
+              qwen2-moe-a2.7b (60 routed, top-4, 4 shared, q/k/v biases
+              seeded N(0, 0.02)), both d_model 2048 and 16/16 heads
+              (G = 1), at full width and half depth (14 of 28 and 12 of
+              24 layers: the script's time limit), bf16,
               seeded weights, after the dense phase's models are freed:
               the dense phase's lockstep, engine and full-retention checks
               through the MoE FFN (``models.moe``).  The lockstep prefill
@@ -124,6 +126,35 @@ Phases, each of which must pass (any failure exits non-zero):
               decoder layers, full retention against the dense
               self-attention cache and the winnowed cross cache against
               the dense one (2e-4 abs + 1e-3 rel, the reference's test).
+   hybrid  — jamba-1.5-large-398b at every published width (d_model
+              8192, 64/8 heads: G = 8, d_ff = d_expert 24576, Mamba d_state
+              16, d_conv 4, expand 2, vocab 65536), cut to one of its nine
+              groups (8 layers: attention at 4, MoE at 1, 3, 5, 7) and 4 of
+              its 16 routed experts (top-2 kept): 16.247 B params, bf16,
+              seeded weights, SwanConfig(k_max=64, buffer=128), calibrated
+              and absorbed.  The lockstep session (batch 4, 2048-token
+              prompt, 64 new tokens) eager and graphed: logits bit for
+              bit, tokens equal, B1 once per attention layer per step; the
+              engine trace (k = 64 for every request: the family takes no
+              per-request k) monolithically on the slab, eagerly; full
+              retention (k = d_head) against the dense cache in bf16
+              (batch 2, reported); then in
+              float32 with 2 routed experts of top-2 (11.41 B params:
+              routing cannot flip) full retention against the dense cache
+              within 1e-3 of the logits' scale, and one Mamba layer's
+              chunked prefill against its token recurrence (the reference
+              test's 1e-5).  Parameters, weight bytes read per decode step,
+              Eq. 1 cache, recurrent state bytes, peak memory and seconds.
+   ssm     — rwkv6-3b at full width and depth (32 layers, d_model 2560,
+              40 heads x 64, d_ff 8960), bf16, no SWAN: the lockstep
+              session as in the hybrid phase, the engine trace eager and
+              graphed at first use (one prefill graph per prompt length;
+              tokens, dispatches and cache report equal) — no kernel runs:
+              every count stays 0; in float32 prefill then
+              decode against the forward's logits at the same positions
+              and one layer's chunked wkv against its recurrence (the
+              reference tests' tolerances).  Both parameter counts, state
+              bytes, step times and memory.
 9. chunk_exact — 4 layers at full retention: a prompt prefilled in two
               chunks (slab, paged) against the dense monolithic prefill.
 10. obs     — the launcher (``repro_torch.launch.serve.main``) serving
@@ -157,8 +188,8 @@ Phases, each of which must pass (any failure exits non-zero):
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
 that ran the kernel — the bench, the lockstep serve, the engines, graphed
-and eager, the dense, MoE, VLM and encoder-decoder phases' models, the
-quality benches — and
+and eager, the dense, MoE, VLM, encoder-decoder and hybrid phases' models,
+the quality benches — and
 ``launches_by_path`` per path), and the result line
 ``{"ok": true, "device": {...}}``; the ``[done]`` line before them gives
 each phase's seconds.  Without a CUDA device it exits non-zero and prints
@@ -764,11 +795,13 @@ def chunk_phase():
 # the served archs' other query groups: yi-9b (32/4 heads) and olmo-1b
 # (16/16) at d_head 128 and k 64, internvl2-1b (14/2: G = 7, the padded
 # plan's one launch of the G = 8 instance) and whisper-small's decoder
-# (12/12) at d_head 64 and k 32, as the dense, vlm and encdec phases serve
-# them: (arch, Kv, G, d_head, k)
+# (12/12) at d_head 64 and k 32, and jamba-1.5-large-398b's attention layer
+# (64/8) at d_head 128 and k 64, as the dense, vlm, encdec and hybrid
+# phases serve them: (arch, Kv, G, d_head, k)
 SERVED_GROUPS = (("yi-9b", 4, 8, DH, K), ("olmo-1b", 16, 1, DH, K),
                  ("internvl2-1b", 2, 7, 64, 32),
-                 ("whisper-small", 12, 1, 64, 32))
+                 ("whisper-small", 12, 1, 64, 32),
+                 ("jamba-1.5-large-398b", 8, 8, DH, K))
 
 
 def served_groups_phase():
@@ -1149,30 +1182,40 @@ def seeded_biases_(cfg, params, seed=0):
         params["layers"]["attn"][name].normal_(0.0, 0.02, generator=gen)
 
 
-def full_model(arch="llama3-8b"):
-    """A model (llama3-8b unless ``arch`` names another) at full width and
-    depth (bf16) from seeded weights (and seeded q/k/v biases), calibrated
-    and absorbed: (cfg, params, projections), shared by the serve and
-    engine phases (and the dense and MoE phases' models)."""
+def full_model(arch="llama3-8b", cfg=None):
+    """A model (llama3-8b unless ``arch`` names another; ``cfg`` in place
+    of its published config where given) at full width and depth (bf16)
+    from seeded weights (and seeded q/k/v biases), calibrated and absorbed
+    where SWAN applies: (cfg, params, projections), shared by the serve and
+    engine phases (and the dense, MoE, VLM, hybrid and ssm phases'
+    models)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.io import make_batch
-    from repro_torch.models.registry import get_model
+    from repro_torch.models.registry import get_model, swan_applicable
     from repro_torch.runtime.serve_loop import calibrate_swan
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init_params(cfg, 0, "cuda")
     seeded_biases_(cfg, params)
-    projections = calibrate_swan(api, cfg, params,
-                                 make_batch(cfg, 4, 64, seed=3, device="cuda"))
-    params = api.absorb(params, cfg, projections)
+    projections = None
+    if swan_applicable(cfg):
+        projections = calibrate_swan(api, cfg, params, make_batch(
+            cfg, 4, 64, seed=3, device="cuda"))
+        params = api.absorb(params, cfg, projections)
     torch.cuda.synchronize()
     m = cfg.moe
     ffn = (f"d_ff {cfg.d_ff}" if m is None else
            f"{m.n_routed} routed experts (top-{m.top_k}) + {m.n_shared} "
            f"shared of width {m.d_expert}")
+    if cfg.mamba is not None:
+        ffn += (f", Mamba (d_state {cfg.mamba.d_state}, expand "
+                f"{cfg.mamba.expand}) but attention at layer "
+                f"{cfg.attn_offset} of every {cfg.attn_period}")
+    if cfg.rwkv is not None:
+        ffn += f", RWKV-6 time mix ({cfg.rwkv.head_dim}-wide heads), no attention"
     if cfg.n_prefix_tokens:
         ffn += f", {cfg.n_prefix_tokens} patch embeddings"
     if cfg.is_encoder_decoder:
@@ -1396,12 +1439,13 @@ def drive(kernels, eng, reqs, label):
     t0 = time.perf_counter()
     ends, kinds, peak_live = [], [], 0
     while not eng.done:
-        n_chunk, n_dec = eng.dispatches["chunk"], eng.dispatches["decode"]
+        n_pre = eng.dispatches["chunk"] + eng.dispatches["prefill"]
+        n_dec = eng.dispatches["decode"]
         eng.step()
         torch.cuda.synchronize()
         ends.append(time.perf_counter() - t0)
-        kinds.append((eng.dispatches["chunk"] - n_chunk,
-                      eng.dispatches["decode"] - n_dec))
+        kinds.append((eng.dispatches["chunk"] + eng.dispatches["prefill"]
+                      - n_pre, eng.dispatches["decode"] - n_dec))
         peak_live = max(peak_live, eng.cache_report()["live_bytes"])
     wall = ends[-1]
     launches = {k.name: k.launches for k in kernels}
@@ -1419,7 +1463,8 @@ def drive(kernels, eng, reqs, label):
     rep = eng.cache_report()
     d = {n: eng.dispatches[n] - d0[n] for n in d0}
     stats = {"wall_s": wall, "tok_s": n_dec_tok / wall,
-             "chunk_ms": statistics.mean(with_chunk),
+             "chunk_ms": (statistics.mean(with_chunk) if with_chunk
+                          else float("nan")),
              "decode_ms": (statistics.mean(dec_only) if dec_only
                            else float("nan")),
              "ttft_steps": ttft_steps, "ttft_ms": ttft_ms,
@@ -1428,7 +1473,7 @@ def drive(kernels, eng, reqs, label):
         f"launches {launches}")
     log(f"  [{label}] wall {wall:.2f} s; {sum(len(c.tokens) for c in comps.values())} "
         f"tokens; decode {stats['tok_s']:.1f} tok/s over the run; steps "
-        f"with a chunk dispatch {stats['chunk_ms']:.1f} ms mean "
+        f"with a chunk or prefill dispatch {stats['chunk_ms']:.1f} ms mean "
         f"({len(with_chunk)}), decode-only steps {stats['decode_ms']:.1f} ms "
         f"mean ({len(dec_only)}); mean time to first token {ttft_steps:.1f} "
         f"steps, {ttft_ms:.0f} ms")
@@ -2085,10 +2130,26 @@ def log_on_off(on_off, smi):
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
-# the dense phase: the dense family's other models at full width and depth
+# the dense phase: the dense family's other models at full width
 # ---------------------------------------------------------------------------
 
 DENSE_ARCHS = ("yi-9b", "olmo-1b")
+# the dense and moe phases serve these archs at half their published depth
+# (every width kept), so that the whole script, the hybrid and ssm phases
+# included, stays well inside its 1200 s
+HALF_DEPTH = {"yi-9b": 24, "deepseek-moe-16b": 14, "qwen2-moe-a2.7b": 12}
+
+
+def served_model(arch):
+    """``full_model`` of ``arch``, cut to ``HALF_DEPTH`` layers where it
+    names the arch (logged)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in HALF_DEPTH:
+        log(f"  [{arch}] depth cut {cfg.n_layers} -> {HALF_DEPTH[arch]} "
+            "layers (every width kept): the run's time limit")
+        cfg = cfg.replace(n_layers=HALF_DEPTH[arch])
+    return full_model(arch, cfg)
 
 
 def dense_engine(kernels, model, arch, k_max=K):
@@ -2149,8 +2210,9 @@ def dense_engine(kernels, model, arch, k_max=K):
 
 
 def dense_phase(kernels):
-    """yi-9b (G = 8) and olmo-1b (G = 1, non-parametric LayerNorm, tied
-    embeddings) at full width and depth, bf16, seeded weights: calibrate,
+    """yi-9b (G = 8; half depth, ``HALF_DEPTH``) and olmo-1b (G = 1,
+    non-parametric LayerNorm, tied embeddings; full depth) at full width,
+    bf16, seeded weights: calibrate,
     absorb, the lockstep session eager and graphed (logits and tokens
     equal, B1 once per layer per step), the engine trace eager on the slab
     and graphed on the paged pool, then 4 layers at full retention against
@@ -2160,8 +2222,8 @@ def dense_phase(kernels):
     counts = {}
     for arch in DENSE_ARCHS:
         t0 = time.perf_counter()
-        log(f"[dense] {arch}: full width and depth, SWAN k={K} b={BUF}")
-        model = full_model(arch)
+        log(f"[dense] {arch}: full width, SWAN k={K} b={BUF}")
+        model = served_model(arch)
         t1 = time.perf_counter()
         graphed, eager = lockstep_graphs(kernels, model, profile=False)
         counts[f"dense_{arch}_lockstep_eager"] = eager
@@ -2192,7 +2254,8 @@ EXACT_PROMPT = 512              # exact_phase's and chunk_exact_phase's prompt
 
 
 def moe_phase(kernels):
-    """deepseek-moe-16b and qwen2-moe-a2.7b at full width and depth, bf16,
+    """deepseek-moe-16b and qwen2-moe-a2.7b at full width and half depth
+    (``HALF_DEPTH``), bf16,
     seeded weights (qwen's biases seeded non-zero), through the dense
     phase's checks: the lockstep session eager and graphed, the engine
     trace eager on the slab and graphed at first use on the paged pool,
@@ -2207,8 +2270,8 @@ def moe_phase(kernels):
     counts = {}
     for arch in MOE_ARCHS:
         t0 = time.perf_counter()
-        log(f"[moe] {arch}: full width and depth, SWAN k={K} b={BUF}")
-        model = full_model(arch)
+        log(f"[moe] {arch}: full width, SWAN k={K} b={BUF}")
+        model = served_model(arch)
         cfg = model[0]
         Kt = cfg.moe.top_k
 
@@ -2475,6 +2538,445 @@ def bf16_routing(arch, batch):
         f"{bool((ls.argmax(-1) == ld.argmax(-1)).all())}; tokens routed "
         f"differently by layer: {route_flips(r_dense, r_swan)}")
     return err / scale
+
+
+# ---------------------------------------------------------------------------
+# hybrid and ssm phases: jamba-1.5-large-398b (one group of 8 layers, 4 of
+# its 16 routed experts) and rwkv6-3b (whole) at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH, SSM_ARCH = "jamba-1.5-large-398b", "rwkv6-3b"
+HYBRID_ROUTED = 4           # routed experts kept of 16 (top-2 unchanged)
+EXACT_F32_TOL = 1e-3        # f32 full retention vs dense, of the logits' scale
+
+
+def hybrid_config(routed=HYBRID_ROUTED, top_k=None, dtype=None):
+    """jamba-1.5-large-398b at every published width, cut to one group of
+    ``attn_period`` layers (attention at 4, MoE at 1, 3, 5, 7) and
+    ``routed`` of its 16 routed experts (``top_k`` kept unless given);
+    ``dtype`` for params and activations (the config's bf16 by default)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID_ARCH)
+    moe = dataclasses.replace(cfg.moe, n_routed=routed,
+                              top_k=top_k or cfg.moe.top_k)
+    cfg = cfg.replace(n_layers=cfg.attn_period, moe=moe)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    return cfg
+
+
+def tree_bytes(tree):
+    from repro_torch.tree import leaves
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def n_attn_layers(cfg):
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def recurrent_lockstep(kernels, model, swan, label):
+    """The lockstep session eager and then graphed (batch 4, a 2048-token
+    prompt, 64 new tokens): the prefill and first decode logits bit for
+    bit, the greedy tokens equal, B1 once per attention layer per decode
+    step (none without attention).  The prefill runs once per mode (its
+    graph's capture and warm run included when graphed); the decode
+    ms/step is timed over the 62 steps after the first.  Returns each
+    mode's numbers (and launches) and the session's state bytes."""
+    import torch
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    cfg, params, projections = model
+    n_attn = n_attn_layers(cfg)
+    prompt = make_batch(cfg, B, PROMPT, seed=11, device="cuda")
+    res = {}
+    for mode in ("eager", "graphed"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sess = ServeSession(cfg, params, swan=swan, projections=projections,
+                            max_seq=S, batch=B, graphs=mode == "graphed",
+                            device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l0 = sess.prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = torch.argmax(l0.float(), dim=-1)
+        l1 = sess.decode(tok)
+        first = (l0.float(), l1.float())
+        toks = [tok, torch.argmax(l1.float(), dim=-1)]
+        tok = toks[-1]
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        steps = NEW_TOKENS - 2
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = torch.argmax(sess.decode(tok).float(), dim=-1)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches = {k.name: k.launches for k in kernels}
+        rep = sess.cache_report()
+        state_b = tree_bytes({n: v for n, v in sess.state.items()
+                              if n != "attn"})
+        res[mode] = {"first": first, "out": torch.stack(toks, 1),
+                     "launches": launches, "prefill_ms": prefill_ms,
+                     "decode_ms": decode_ms, "report": rep,
+                     "state_bytes": state_b,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"  [{label} {mode}] prefill {B}x{PROMPT} {prefill_ms:.1f} ms"
+            f"{' (its graph capture and warm run included)' if mode == 'graphed' else ''}; "
+            f"decode {decode_ms:.2f} ms/step over {steps} steps; device "
+            f"memory peak {res[mode]['peak_gib']:.2f} GiB; launches {launches}")
+        check(launches["swan_decode"] == n_attn * steps
+              and all(n == 0 for name, n in launches.items()
+                      if name != "swan_decode"),
+              f"[{label} {mode}] launches {launches}, expected swan_decode "
+              f"{n_attn} x {steps}")
+        check(sess.pos == PROMPT + NEW_TOKENS - 1,
+              f"[{label} {mode}] session at {sess.pos}")
+        check(bool(torch.isfinite(first[0]).all())
+              and bool(torch.isfinite(first[1]).all()),
+              f"[{label} {mode}] logits not finite")
+        if mode == "graphed":
+            g = sess._graphs
+            log(f"  [{label} graphed] graphs {dict(g.captures)}, replays "
+                f"{dict(g.replays)}, capture {g.capture_s:.2f} s")
+        del sess
+    e, g = res["eager"], res["graphed"]
+    for what, a, b in (("prefill", e["first"][0], g["first"][0]),
+                       ("first decode", e["first"][1], g["first"][1])):
+        diff = (a - b).abs().max().item()
+        log(f"  [{label}] {what} logits graphed vs eager: max|diff| {diff}")
+        check(diff == 0.0, f"[{label}] graphed {what} logits differ from eager")
+    same = bool(torch.equal(e["out"], g["out"]))
+    log(f"  [{label}] graphed tokens == eager tokens: {same}; decode "
+        f"{g['decode_ms']:.2f} vs {e['decode_ms']:.2f} ms/step "
+        f"({g['decode_ms'] / e['decode_ms']:.3f} x); seq 0: "
+        f"{e['out'][0, :12].tolist()} ...")
+    check(same, f"[{label}] graphed lockstep tokens differ from eager")
+    return res
+
+
+def recurrent_requests(cfg):
+    """The engine trace (``ENGINE_LENS``, 32 new tokens each) at the
+    config's k: the recurrent families take no per-request k."""
+    import dataclasses
+    return [dataclasses.replace(r, k=None) for r in engine_requests(cfg)]
+
+
+def recurrent_engine(kernels, model, swan, label, modes=("eager", "graphed")):
+    """The engine trace monolithically on the slab, eagerly and (in
+    ``modes``) graphed at first use (one prefill graph per distinct prompt
+    length: these families take no bucket's ``true_len``): equal tokens,
+    dispatches and ``cache_report()``; B1 once per attention layer per
+    decode dispatch (plus the decode graph's warm run).  Returns each
+    run's launches by mode."""
+    import torch
+    from repro_torch.runtime.serve_engine import ServeEngine
+    cfg, params, projections = model
+    n_attn = n_attn_layers(cfg)
+    runs = {}
+    for mode in modes:
+        eng = ServeEngine(cfg, params, swan=swan, projections=projections,
+                          max_seq=S, n_slots=ENGINE_SLOTS,
+                          graphs=mode == "graphed", metrics=False,
+                          device="cuda")
+        run = drive(kernels, eng, recurrent_requests(cfg),
+                    f"{label} slab {mode}")
+        lazy = dict(eng._graphs.lazy_captures) if mode == "graphed" else {}
+        d, launches = run["dispatches"], run["launches"]
+        check(d["chunk"] == 0 and d["prefill"] == len(ENGINE_LENS),
+              f"[{label} {mode}] dispatches {d}")
+        check(launches["swan_decode"]
+              == n_attn * (d["decode"] + lazy.get("decode", 0))
+              and all(n == 0 for name, n in launches.items()
+                      if name != "swan_decode"),
+              f"[{label} {mode}] launches {launches} != {n_attn} x "
+              f"(dispatches {d} + captures' warm runs {lazy})")
+        if mode == "graphed":
+            g = eng._graphs
+            log(f"  [{label} slab graphed] graphs captured at first use "
+                f"{lazy} in {g.capture_s:.1f} s; replays {dict(g.replays)}")
+        runs[mode] = run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    e = runs["eager"]
+    if "graphed" in runs:
+        g = runs["graphed"]
+        check(g["tokens"] == e["tokens"] and g["dispatches"] == e["dispatches"]
+              and g["report"] == e["report"],
+              f"[{label}] graphed engine != eager engine")
+        log(f"  [{label}] graphed engine tokens, dispatches and cache_report "
+            "== eager's")
+    log(f"  [{label}] cache_report {e['report']}")
+    return {m: r["launches"] for m, r in runs.items()}
+
+
+def full_retention(kernels, cfg, dense_params, swan_params, proj, batch,
+                   prompt_len, tol, label):
+    """Full retention (k = d_head) against the dense cache: ``batch``
+    prompts of ``prompt_len`` tokens, then 8 greedy decode steps of the
+    dense run's tokens; the logits within ``tol`` of their scale at every
+    step when ``tol`` is given (else reported), B1 once per attention
+    layer per decode step.  Returns the worst relative error."""
+    from repro_torch.configs import SwanConfig
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    full = SwanConfig(k_max=cfg.d_head, buffer=BUF, mode="topk")
+    kw = dict(max_seq=prompt_len + 16, batch=batch, graphs=False,
+              device="cuda")
+    s_swan = ServeSession(cfg, swan_params, swan=full, projections=proj, **kw)
+    s_dense = ServeSession(cfg, dense_params, **kw)
+    prompt = make_batch(cfg, batch, prompt_len, seed=5, device="cuda")
+    ld, ls = s_dense.prefill(prompt), s_swan.prefill(prompt)
+    kern = {k.name: k for k in kernels}["swan_decode"]
+    before, worst = kern.launches, 0.0
+    for step in range(9):
+        scale = max(1.0, ld.float().abs().max().item())
+        err = (ls.float() - ld.float()).abs().max().item()
+        agree = (ls.argmax(-1) == ld.argmax(-1)).float().mean().item()
+        bound = "reported" if tol is None else f"tol {tol * scale:.2e}"
+        log(f"  [{label}] step {step}: max|swan - dense| {err:.3e} (max|dense| "
+            f"{scale:.2f}, {bound}); argmax agreement {agree:.2f}")
+        if tol is not None:
+            check(err <= tol * scale,
+                  f"[{label}] full-retention SWAN logits differ from dense")
+        worst = max(worst, err / scale)
+        if step == 8:
+            break
+        tok = ld.argmax(-1)
+        ld, ls = s_dense.decode(tok), s_swan.decode(tok)
+    check(kern.launches - before == n_attn_layers(cfg) * 8,
+          f"[{label}] the full-retention decode did not go through B1")
+    return worst
+
+
+def held_to(label, pairs, atol, rtol):
+    """Each (what, got, want) within ``atol + rtol·|want|``, element by
+    element; logs the largest difference.  Returns the largest difference
+    relative to each pair's scale."""
+    worst = 0.0
+    for what, a, b in pairs:
+        err = (a - b).abs()
+        ok = bool((err <= atol + rtol * b.abs()).all())
+        scale = max(1.0, b.abs().max().item())
+        log(f"  [{label}] {what}: max|diff| {err.max().item():.3e} (max|want| "
+            f"{b.abs().max().item():.3e}; tol {atol:g} + {rtol:g} rel: {ok})")
+        check(ok, f"[{label}] {what} differ")
+        worst = max(worst, err.max().item() / scale)
+    return worst
+
+
+def hybrid_phase(kernels):
+    """jamba-1.5-large-398b at every published width, cut to one group of
+    8 layers and 4 of 16 routed experts (16.247 B params, 32.5 GB bf16: a
+    full group is 45.24 B, 90.5 GB, over the card's 80 GB), bf16, seeded
+    weights, SwanConfig(k_max=64, buffer=128), calibrated and absorbed: the
+    lockstep session eager and graphed (B1 on the attention layer), the
+    engine trace monolithically on the slab (eager), full retention in
+    bf16 at batch 2 (reported); then in float32 with 2 routed experts of
+    top-2 (11.41 B params: routing cannot flip) full retention against the
+    dense cache within ``EXACT_F32_TOL``, and one Mamba layer's chunked
+    prefill (output, state, conv tail) against its token recurrence within
+    the reference test's 1e-5.  Returns the launch counts by path."""
+    import torch
+    from repro_torch.configs import SwanConfig, get_config
+    from repro_torch.models import jamba, mamba
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime.serve_loop import calibrate_swan
+    from repro_torch.launch.io import make_batch
+
+    t0 = time.perf_counter()
+    full_cfg, cfg = get_config(HYBRID_ARCH), hybrid_config()
+    group = full_cfg.replace(n_layers=full_cfg.attn_period)
+    log(f"[hybrid] {HYBRID_ARCH}: every published width; cut to 1 of "
+        f"{full_cfg.n_layers // full_cfg.attn_period} groups (8 layers: "
+        f"attention at 4, Mamba at 0-3 and 5-7, MoE at 1, 3, 5, 7) and "
+        f"{HYBRID_ROUTED} of {full_cfg.moe.n_routed} routed experts "
+        f"(top-{cfg.moe.top_k} kept): a full group is "
+        f"{group.n_params() / 1e9:.2f} B params, "
+        f"{2 * group.n_params() / 1e9:.1f} GB in bf16, over the card's 80 GB; "
+        f"the cut {cfg.n_params() / 1e9:.3f} B, "
+        f"{2 * cfg.n_params() / 1e9:.1f} GB (the published model "
+        f"{full_cfg.n_params() / 1e9:.2f} B)")
+    swan = SwanConfig(k_max=K, buffer=BUF)
+    model = full_model(HYBRID_ARCH, cfg)
+    params = model[1]
+    weights_b = tree_bytes(params) - tree_bytes(params["embed"])
+    t1 = time.perf_counter()
+    counts = {}
+    lock = recurrent_lockstep(kernels, model, swan, f"{HYBRID_ARCH} lockstep")
+    counts["hybrid_lockstep_eager"] = lock["eager"]["launches"]
+    counts["hybrid_lockstep_graphed"] = lock["graphed"]["launches"]
+    # the Mamba scan's share of the prefill: one Mamba layer's forward over
+    # the lockstep prompt's shape, timed alone (the card synchronised)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xh = (torch.randn((B, PROMPT, cfg.d_model), device="cuda", generator=gen)
+          * 0.5).to(torch.bfloat16)
+    mp = jamba.group_params(params, 0)["pos0"]["mamba"]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        tm = time.perf_counter()
+        mamba.mamba_forward(mp, cfg, xh, return_state=True)
+        torch.cuda.synchronize()
+    layer_ms = (time.perf_counter() - tm) * 1e3
+    n_mamba = cfg.n_layers - n_attn_layers(cfg)
+    share = n_mamba * layer_ms / lock["eager"]["prefill_ms"]
+    log(f"  [{HYBRID_ARCH}] one Mamba layer's forward over {B}x{PROMPT}: "
+        f"{layer_ms:.1f} ms; x {n_mamba} layers = {share:.1%} of the eager "
+        f"prefill")
+    del xh, mp
+    t2 = time.perf_counter()
+    # eager only: each prompt length's prefill graph would cost a warm run
+    # and a replay of the Mamba scan (the ssm phase runs the graphed engine)
+    counts["hybrid_engine_slab"] = recurrent_engine(
+        kernels, model, swan, f"{HYBRID_ARCH} engine", modes=("eager",))["eager"]
+    t3 = time.perf_counter()
+    bf16 = full_retention(kernels, cfg, params, params, model[2], 2,
+                          EXACT_PROMPT, None, f"{HYBRID_ARCH} bf16, k=d_head")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    xcfg = hybrid_config(routed=2, top_k=2, dtype="float32")
+    log(f"[hybrid] float32, 2 routed experts of top-2 (every token takes "
+        f"both: routing cannot flip): {xcfg.n_params() / 1e9:.3f} B params, "
+        f"{4 * xcfg.n_params() / 1e9:.1f} GB")
+    api = get_model(xcfg)
+    xparams = api.init_params(xcfg, 1, "cuda")
+    proj = calibrate_swan(api, xcfg, xparams,
+                          make_batch(xcfg, 4, 64, seed=3, device="cuda"))
+    absorbed = api.absorb(xparams, xcfg, proj)
+    worst = full_retention(kernels, xcfg, xparams, absorbed, proj, B,
+                           EXACT_PROMPT, EXACT_F32_TOL,
+                           f"{HYBRID_ARCH} f32, k=d_head")
+    # one Mamba layer: chunked prefill (two chunks and a short third) vs
+    # the token recurrence, at the reference's own tolerance
+    # (tests/test_mamba_rwkv.py:22)
+    mp = jamba.group_params(xparams, 0)["pos0"]["mamba"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((1, 2 * mamba.CHUNK + 37, xcfg.d_model), device="cuda",
+                    generator=gen) * 0.5
+    with torch.no_grad():
+        y, fin = mamba.mamba_forward(mp, xcfg, x, return_state=True)
+        st = mamba.init_mamba_state(xcfg, 1, "cuda")
+        seq = torch.cat([mamba.mamba_decode_step(mp, xcfg, x[:, t:t + 1], st)
+                         for t in range(x.shape[1])], dim=1)
+    scan = held_to(f"{HYBRID_ARCH} f32 Mamba layer 0, {x.shape[1]} tokens, "
+                   "chunked vs token recurrence",
+                   (("outputs", y, seq), ("final h", fin["h"], st["h"]),
+                    ("conv tail", fin["conv"], st["conv"])), 1e-5, 0.0)
+    del xparams, absorbed, proj, mp, st, y, fin, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    e, g = lock["eager"], lock["graphed"]
+    rep = g["report"]
+    log(f"[hybrid] {HYBRID_ARCH} (cut): {cfg.n_params() / 1e9:.3f} B params "
+        f"(published {full_cfg.n_params() / 1e9:.2f} B); weights read per "
+        f"decode step {weights_b / 1e9:.2f} GB (every leaf but the "
+        f"embedding: every expert, as the MoE family's decode); lockstep "
+        f"decode graphed {g['decode_ms']:.2f} / eager {e['decode_ms']:.2f} "
+        f"ms/step; prefill {B}x{PROMPT} eager {e['prefill_ms']:.1f} ms "
+        f"(graphed, capture included, {g['prefill_ms']:.1f} ms); device "
+        f"memory peak graphed {g['peak_gib']:.2f} / eager "
+        f"{e['peak_gib']:.2f} GiB; attention cache (Eq. 1, batch {B}, "
+        f"max_seq {S}) SWAN {rep['bytes'] / 1e6:.1f} MB vs dense "
+        f"{rep['dense_bytes'] / 1e6:.1f} MB ({rep['saving']:.1%} saving); "
+        f"recurrent state {g['state_bytes'] / 1e6:.1f} MB "
+        f"({cfg.n_layers - n_attn_layers(cfg)} Mamba layers x "
+        f"{g['state_bytes'] / (cfg.n_layers - n_attn_layers(cfg)) / 1e6:.2f} "
+        f"MB); full retention worst relative logit error {worst:.2e} "
+        f"(float32, tol {EXACT_F32_TOL:g}), {bf16:.4f} (bf16, reported); "
+        f"Mamba chunked vs recurrence {scan:.2e} of the scale; the Mamba "
+        f"layers {share:.1%} of the prefill; seconds: model "
+        f"{t1 - t0:.1f}, lockstep {t2 - t1:.1f}, engine {t3 - t2:.1f}, bf16 "
+        f"full retention {t4 - t3:.1f}, float32 {t5 - t4:.1f}, all "
+        f"{t5 - t0:.1f}")
+    return counts
+
+
+def ssm_phase(kernels):
+    """rwkv6-3b at full width and depth (32 layers, d_model 2560, 40 heads
+    x 64, d_ff 8960), bf16, seeded weights, no SWAN (no KV cache): the
+    lockstep session eager and graphed, the engine trace monolithically on
+    the slab, eager and graphed; then in float32, prefill then decode
+    against the forward's logits at the same positions (the reference's
+    tests/test_mamba_rwkv.py:71 tolerance) and one layer's chunked wkv
+    against its recurrence (the reference test's 2e-4 + 1e-3 rel).  No
+    kernel runs on this path: every launch count must stay 0."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.io import make_batch
+    from repro_torch.models import rwkv
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    log(f"[ssm] {SSM_ARCH}: full width and depth, no SWAN (no KV cache)")
+    model = full_model(SSM_ARCH)
+    leaves_n = sum(x.numel() for x in leaves(model[1]))
+    t1 = time.perf_counter()
+    lock = recurrent_lockstep(kernels, model, None, f"{SSM_ARCH} lockstep")
+    t2 = time.perf_counter()
+    recurrent_engine(kernels, model, None, f"{SSM_ARCH} engine")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    xcfg = cfg.replace(dtype="float32", param_dtype="float32")
+    api = get_model(xcfg)
+    xparams = api.init_params(xcfg, 1, "cuda")
+    batch = make_batch(xcfg, 2, EXACT_PROMPT + 8, seed=5, device="cuda")
+    toks = batch["tokens"]
+    with torch.no_grad():
+        full = api.forward(xparams, xcfg, {"tokens": toks}).float()
+    st = api.init_serve_state(xcfg, None, 2, EXACT_PROMPT + 16, "cuda")
+    lg, _ = api.prefill(xparams, xcfg, {"tokens": toks[:, :EXACT_PROMPT]}, st)
+    pairs = [("prefill logits", lg[:, 0], full[:, EXACT_PROMPT - 1])]
+    for t in range(EXACT_PROMPT, EXACT_PROMPT + 8):
+        lg, _ = api.decode_step(xparams, xcfg, toks[:, t], t, st)
+        pairs.append((f"decode logits at {t}", lg, full[:, t]))
+    logit_err = held_to(f"{SSM_ARCH} f32 prefill {EXACT_PROMPT} + 8 decode "
+                        "steps vs the forward", pairs, 2e-3, 1e-3)
+    tm = tfm.layer_params(xparams, 0)["tm"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((2, 2 * rwkv.CHUNK + 37, xcfg.d_model), device="cuda",
+                    generator=gen) * 0.5
+    with torch.no_grad():
+        y, S_fin = rwkv.time_mix_forward(tm, xcfg, x, return_state=True)
+        rst = rwkv.init_rwkv_state(xcfg, 2, "cuda")
+        seq = torch.cat([rwkv.time_mix_decode(tm, xcfg, x[:, t:t + 1], rst)
+                         for t in range(x.shape[1])], dim=1)
+    wkv_err = held_to(f"{SSM_ARCH} f32 layer 0 time mix, {x.shape[1]} "
+                      "tokens, chunked wkv vs recurrence",
+                      (("outputs", y, seq), ("final state", S_fin, rst["S"])),
+                      2e-4, 1e-3)
+    del xparams, full, st, y, S_fin, rst, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    e, g = lock["eager"], lock["graphed"]
+    log(f"[ssm] {SSM_ARCH}: {cfg.n_params() / 1e9:.3f} B params by the "
+        f"reference's formula, {leaves_n / 1e9:.3f} B in the leaves (the "
+        f"formula leaves out the channel mix's w_r); lockstep decode graphed "
+        f"{g['decode_ms']:.2f} / eager {e['decode_ms']:.2f} ms/step; prefill "
+        f"{B}x{PROMPT} eager {e['prefill_ms']:.1f} ms (graphed, capture "
+        f"included, {g['prefill_ms']:.1f} ms); device memory peak graphed "
+        f"{g['peak_gib']:.2f} / eager {e['peak_gib']:.2f} GiB; cache (Eq. 1) "
+        f"{g['report']['bytes']} B; recurrent state "
+        f"{g['state_bytes'] / 1e6:.1f} MB at batch {B}; float32: logits "
+        f"{logit_err:.2e}, wkv {wkv_err:.2e} of the scale; seconds: model "
+        f"{t1 - t0:.1f}, lockstep {t2 - t1:.1f}, engine {t3 - t2:.1f}, "
+        f"float32 {t4 - t3:.1f}, all {t4 - t0:.1f}")
 
 
 def small_model(arch="llama3-8b", dtype=None):
@@ -3060,7 +3562,8 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
 PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs", "dense",
-          "moe", "vlm", "encdec", "chunk_exact", "obs", "train")
+          "moe", "vlm", "encdec", "hybrid", "ssm", "chunk_exact", "obs",
+          "train")
 
 
 def main(argv=None) -> int:
@@ -3200,6 +3703,15 @@ def main(argv=None) -> int:
         for path, counts in encdec_phase(KERNELS).items():
             record(path, counts)
         lap("encdec")
+    if "hybrid" in phases:
+        mark[0] = time.perf_counter()
+        for path, counts in hybrid_phase(KERNELS).items():
+            record(path, counts)
+        lap("hybrid")
+    if "ssm" in phases:
+        mark[0] = time.perf_counter()
+        ssm_phase(KERNELS)
+        lap("ssm")
     if "chunk_exact" in phases:
         log("[chunk_exact] 4 layers at full width, k=d_head: chunked prefill "
             "(slab, paged) vs the dense monolithic prefill")

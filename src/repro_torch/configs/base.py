@@ -1,6 +1,7 @@
 """Configuration dataclasses: the fields of ``repro.configs.base`` that the
-dense, MoE, VLM and encoder-decoder serving and training paths read, and
-the reference's input shapes, kept as the port's own copy."""
+dense, MoE, VLM, encoder-decoder, hybrid (Mamba + attention) and
+attention-free (RWKV) serving and training paths read, and the
+reference's input shapes, kept as the port's own copy."""
 from __future__ import annotations
 
 import dataclasses
@@ -65,6 +66,21 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    """Mamba-1 selective SSM block (Jamba's sequence mixer)."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0              # 0 -> ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 (Finch) time mix."""
+    head_dim: int = 64
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """The transformer of the ported families: RoPE or learned positions
     (``pos``), optional q/k/v, attention-output and MLP biases
@@ -75,12 +91,15 @@ class ModelConfig:
     prefix of ``n_prefix_tokens`` patch embeddings ahead of the tokens
     (``vlm``), and an encoder of ``n_encoder_layers`` over ``encoder_seq``
     frames with cross-attention in every decoder layer
-    (``is_encoder_decoder``).  These cover the reference's dense family
-    (llama3-8b, yi-9b, olmo-1b), its ``moe`` family (deepseek-moe-16b,
-    qwen2-moe-a2.7b), its ``vlm`` family (internvl2-1b) and its ``encdec``
-    family (whisper-small).  The reference's Mamba, RWKV and sharding
-    fields (``tp_style`` among them) come with the families and the
-    sharding that set them.
+    (``is_encoder_decoder``), Mamba mixers with attention on every
+    ``attn_period``-th layer at ``attn_offset`` (``mamba``), and RWKV-6
+    time mixes in place of attention (``rwkv``).  These cover the
+    reference's dense family (llama3-8b, yi-9b, olmo-1b), its ``moe``
+    family (deepseek-moe-16b, qwen2-moe-a2.7b), its ``vlm`` family
+    (internvl2-1b), its ``encdec`` family (whisper-small), its ``hybrid``
+    family (jamba-1.5-large-398b) and its ``ssm`` family (rwkv6-3b).  The
+    reference's sharding fields (``tp_style`` among them) come with the
+    sharding that sets them.
 
     The training fields are the reference's, with two left out: its
     ``scan_layers`` chooses how XLA compiles the layer stack, and the port
@@ -88,7 +107,7 @@ class ModelConfig:
     ``OptimizerConfig.state_dtype``, the one field the port reads for the
     AdamW moments' dtype."""
     name: str
-    family: str                   # dense | moe | vlm | encdec (the ported families)
+    family: str                   # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -106,6 +125,10 @@ class ModelConfig:
     max_position: int = 1 << 20
     tie_embeddings: bool = False  # the head is embed.T (no "head" leaf)
     moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    attn_period: int = 1          # hybrid: attention on layers where idx % attn_period == attn_offset
+    attn_offset: int = 0
     # --- encoder-decoder -------------------------------------------------
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
@@ -123,10 +146,20 @@ class ModelConfig:
     def q_group(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.rwkv is not None
+
     def layer_kind(self, idx: int) -> str:
-        """The mixer of layer ``idx``: attention on every layer of the
-        ported families."""
-        return "attn"
+        """The mixer of layer ``idx``: "rwkv" on every layer of an RWKV
+        config, "attn" or "mamba" by ``attn_period``/``attn_offset`` in a
+        hybrid one, "attn" elsewhere."""
+        if self.rwkv is not None:
+            return "rwkv"
+        if self.mamba is None:
+            return "attn"
+        return ("attn" if idx % self.attn_period == self.attn_offset
+                else "mamba")
 
     def ffn_kind(self, idx: int) -> str:
         """The FFN of layer ``idx``: "moe" where ``moe`` puts its experts,
@@ -139,7 +172,9 @@ class ModelConfig:
     def n_params(self) -> int:
         """Analytical parameter count (embedding, learned positions,
         blocks, an encoder's blocks and its decoder's cross-attention,
-        head), the reference's formula for the ported families."""
+        head), the reference's formula.  Its RWKV term leaves out the
+        channel mix's receptance ``w_r`` (d² a layer), as the reference's
+        does, so it undercounts rwkv6-3b's leaves."""
         return self._count_params(active=False)
 
     def n_active_params(self) -> int:
@@ -153,14 +188,20 @@ class ModelConfig:
     def _count_params(self, active: bool) -> int:
         n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
         # the reference's active count (MoE only) has no positional table,
-        # encoder or cross-attention
+        # encoder, cross-attention or RWKV mixer
         encdec = self.is_encoder_decoder and not active
         if self.pos == "learned" and not active:
             n += self.max_position_learned() * self.d_model
         for idx in range(self.n_layers):
-            n += self._attn_params()
-            if encdec:
-                n += self._attn_params()                # cross attention
+            kind = self.layer_kind(idx)
+            if kind == "attn":
+                n += self._attn_params()
+                if encdec:
+                    n += self._attn_params()            # cross attention
+            elif kind == "mamba":
+                n += self._mamba_params()
+            elif not active:
+                n += self._rwkv_params()
             if self.ffn_kind(idx) == "dense":
                 n += self._mlp_params(self.d_ff)
             else:
@@ -186,6 +227,24 @@ class ModelConfig:
 
     def _mlp_params(self, ff: int) -> int:
         return (3 if self.act == "silu" else 2) * self.d_model * ff
+
+    def _mamba_params(self) -> int:
+        m = self.mamba
+        d_in = m.expand * self.d_model
+        dt_rank = m.dt_rank or -(-self.d_model // 16)
+        n = self.d_model * 2 * d_in                 # in_proj (x & z)
+        n += d_in * m.d_conv                        # causal conv
+        n += d_in * (dt_rank + 2 * m.d_state)       # x -> dt, B, C
+        n += dt_rank * d_in                         # dt_proj
+        n += d_in * m.d_state + d_in                # A_log, D
+        n += d_in * self.d_model                    # out_proj
+        return n
+
+    def _rwkv_params(self) -> int:
+        d = self.d_model
+        # r, k, v, g, o projections, the decay and bonus vectors, the
+        # token-shift mixes and the decay LoRA (the reference's count)
+        return 5 * d * d + 4 * d + 2 * (d * 64)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

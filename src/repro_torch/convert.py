@@ -4,7 +4,9 @@ Carries params from ``get_model(cfg).init_params``, projections and caches
 of the JAX reference across to the port with the same nesting; stacked
 ``[L, ...]`` layer leaves stay stacked, and so do an encoder-decoder's
 ``enc``/``dec`` subtrees with their positional tables, its cross
-attention and its biases.  Any leaf that ``np.asarray``
+attention and its biases, a hybrid's ``groups/pos{p}`` subtrees stacked
+[G, ...] over its layer groups, and an RWKV model's time and channel
+mixes.  Any leaf that ``np.asarray``
 accepts works, so this module needs nothing of JAX.  ``bfloat16`` and
 ``float8_e4m3fn`` numpy arrays (ml_dtypes) are moved bit for bit, and a
 0-d leaf (an optimizer's step counter) stays 0-d.  Empty dicts (the

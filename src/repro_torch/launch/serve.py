@@ -22,8 +22,13 @@ FFNs; qwen2 with q/k/v biases), internvl2-1b (7 queries per kv head; the
 lockstep prompt carries 256 patch embeddings ahead of its tokens, the
 engine's requests tokens only) or whisper-small (an encoder over 1500
 frames, cross-attention; lockstep only: ``--engine`` is refused, as by
-the reference), each at its full published configuration or, with
-``--smoke``, its small one.  internvl2-1b's lockstep tokens differ from
+the reference), jamba-1.5-large-398b (Mamba layers, one attention layer
+in 8, which ``--swan`` winnows, MoE FFNs) or rwkv6-3b (RWKV-6, no
+attention: ``--swan`` exits non-zero, "SWAN inapplicable", as the
+reference's launcher does), each at its full published configuration or,
+with ``--smoke``, its small one.  The two recurrent families serve the
+engine monolithically on the slab at the config's k (no ``--paged``,
+``--prefill-chunk`` or ``--mixed-k``, as in the reference).  internvl2-1b's lockstep tokens differ from
 the reference launcher's on the same weights by design: the reference's
 session decodes its first token at the token count, inside the patch
 prefix, and the port's at the prefill's full length.  ``--pool-pages`` (the reference's

@@ -8,9 +8,11 @@ run is on the card.  ``--arch`` is llama3-8b, yi-9b, olmo-1b (whose
 tied embedding takes the gradients of both its uses), deepseek-moe-16b
 or qwen2-moe-a2.7b (whose loss adds the experts' load-balance and router
 z-losses) or internvl2-1b (trained, as by the reference's trainer, on
-token batches without patch embeddings); without ``--smoke`` each is its
-full configuration, which for all but olmo-1b and internvl2-1b needs more
-memory than one card holds with f32 AdamW moments.  whisper-small is
+token batches without patch embeddings), jamba-1.5-large-398b (Mamba,
+attention and MoE layers; its loss adds the experts' aux losses) or
+rwkv6-3b; without ``--smoke`` each is its full configuration, which for
+all but olmo-1b and internvl2-1b needs more memory than one card holds
+with f32 AdamW moments.  whisper-small is
 refused: the token stream carries no encoder frames (the reference's
 trainer fails on it with ``KeyError: 'frames'``).
 """

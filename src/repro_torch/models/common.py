@@ -40,6 +40,18 @@ def embed_init_(out: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     return out.copy_(w.normal_(0.0, 1.0, generator=gen).mul_(0.02))
 
 
+def write_live_(dst: torch.Tensor, new: torch.Tensor,
+                live: Optional[torch.Tensor]) -> None:
+    """``dst.copy_(new)`` on the lanes (dim 0) where ``live`` [B] is True;
+    a dead lane keeps its row (all lanes are live when ``live`` is None).
+    The recurrent serve states' update: the engine's idle lanes and a
+    graph's warm run decode at pos = -1 and must change nothing."""
+    if live is not None:
+        new = torch.where(live.reshape((-1,) + (1,) * (new.dim() - 1)), new,
+                          dst)
+    dst.copy_(new)
+
+
 # ---------------------------------------------------------------------------
 # Normalisation
 # ---------------------------------------------------------------------------

@@ -1,5 +1,4 @@
-"""Model API of the port (the ``dense``, ``moe``, ``vlm`` and ``encdec``
-entries of ``repro.models.registry``).
+"""Model API of the port (the six families of ``repro.models.registry``).
 
 The first three run through the same transformer adapters, as in the
 reference: the dense archs (llama3-8b, yi-9b, olmo-1b), whose ``norm``
@@ -8,14 +7,18 @@ and ``tie_embeddings`` pick the norm and the output head, the MoE archs
 ``models.moe`` in place of the MLP, and the VLM (internvl2-1b), whose
 batches may carry ``prefix_embeds`` ahead of the tokens.  The
 encoder-decoder (whisper-small) runs through ``models.encdec`` on batches
-that carry ``frames``; like the reference's, it has no paged state and no
-chunked prefill."""
+that carry ``frames``; the hybrid (jamba-1.5-large-398b) through
+``models.jamba`` and the attention-free ``ssm`` family (rwkv6-3b) through
+``models.rwkv_model``.  Like the reference's, these three have no paged
+state and no chunked prefill, and the ``ssm`` family has no calibration
+capture and no absorption (``collect_qkv``/``absorb`` None): SWAN is
+inapplicable to it."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from repro_torch.models import encdec
+from repro_torch.models import encdec, jamba, rwkv_model
 from repro_torch.models import transformer as tfm
 
 
@@ -26,14 +29,17 @@ class ModelApi:
     init_serve_state: Callable   # (cfg, swan, batch, max_seq, device) -> state
     prefill: Callable            # (p, cfg, batch, state, swan, proj, ...) -> (logits, state)
     decode_step: Callable        # (p, cfg, token, pos, state, swan, proj, ...) -> (logits, state)
-    collect_qkv: Callable        # (p, cfg, batch) -> (q, k, v, wo)
-    absorb: Callable             # (p, cfg, projections) -> params
+    # (p, cfg, batch) -> (q, k, v, wo); None where SWAN is inapplicable
+    collect_qkv: Optional[Callable]
+    absorb: Optional[Callable]   # (p, cfg, projections) -> params
     # (cfg, swan, batch, max_seq, n_pages, page_size, device) -> paged
-    # state; None where the family has no paged layout (encdec)
+    # state; None where the family has no paged layout (encdec, hybrid,
+    # ssm)
     init_paged_state: Optional[Callable] = None
     # (p, cfg, batch, state, slot [P], start [P], swan, proj, ...) ->
     # (logits [P, V], state): one chunk for each of P slots' prefills; None
-    # where the family cannot resume a prefill mid-prompt (encdec)
+    # where the family cannot resume a prefill mid-prompt (encdec, and the
+    # recurrent state of hybrid and ssm)
     prefill_chunk: Optional[Callable] = None
 
     def forward(self, p, cfg, batch):
@@ -86,6 +92,26 @@ def _encdec_collect(p, cfg, batch):
     return encdec.collect_qkv(p, cfg, batch["tokens"], batch["frames"])
 
 
+def _jamba_forward_aux(p, cfg, batch):
+    return jamba.lm_forward_aux(p, cfg, batch["tokens"])
+
+
+def _jamba_prefill(p, cfg, batch, state, swan=None, proj=None):
+    return jamba.prefill(p, cfg, batch["tokens"], state, swan, proj)
+
+
+def _jamba_collect(p, cfg, batch):
+    return jamba.collect_qkv(p, cfg, batch["tokens"])
+
+
+def _rwkv_forward_aux(p, cfg, batch):
+    return rwkv_model.lm_forward_aux(p, cfg, batch["tokens"])
+
+
+def _rwkv_prefill(p, cfg, batch, state, swan=None, proj=None):
+    return rwkv_model.prefill(p, cfg, batch["tokens"], state, swan, proj)
+
+
 _TRANSFORMER = ModelApi(tfm.init_lm_params, _forward_aux, tfm.init_caches,
                         _prefill, tfm.lm_decode_step, _collect,
                         tfm.absorb_swan, tfm.init_paged_caches,
@@ -94,15 +120,19 @@ _FAMILIES = {"dense": _TRANSFORMER, "moe": _TRANSFORMER, "vlm": _TRANSFORMER,
              "encdec": ModelApi(encdec.init_lm_params, _encdec_forward_aux,
                                 encdec.init_serve_state, _encdec_prefill,
                                 encdec.decode_step, _encdec_collect,
-                                encdec.absorb_swan)}
+                                encdec.absorb_swan),
+             "hybrid": ModelApi(jamba.init_lm_params, _jamba_forward_aux,
+                                jamba.init_serve_state, _jamba_prefill,
+                                jamba.decode_step, _jamba_collect,
+                                jamba.absorb_swan),
+             "ssm": ModelApi(rwkv_model.init_lm_params, _rwkv_forward_aux,
+                             rwkv_model.init_serve_state, _rwkv_prefill,
+                             rwkv_model.decode_step, None, None)}
 
 
 def get_model(cfg) -> ModelApi:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
-                                  f"the port has {list(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
 def swan_applicable(cfg) -> bool:
-    return cfg.family in _FAMILIES
+    return get_model(cfg).collect_qkv is not None

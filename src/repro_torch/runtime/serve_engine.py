@@ -14,7 +14,12 @@ without AOT lowering (``lower_decode`` / ``lower_chunk``).
 Per-request SWAN ``k`` rides along as a per-lane ``[B]`` operand, so a batch
 mixes compression levels.  Prompts are padded to power-of-two buckets with
 the true length alongside (the reference's compile-count bound; here the
-graph-count bound).  Greedy lanes take the device argmax computed inside
+graph-count bound).  As in the reference, both need the family's prefill
+and decode to take them (``k_active``, ``true_len``): the recurrent
+families (hybrid, ssm) serve at the config's k with unpadded prompts,
+since a recurrent state would absorb the padding, and a graphed engine
+captures their monolithic prefill once per distinct prompt length, at
+first use.  Greedy lanes take the device argmax computed inside
 the dispatch; temperature lanes sample on the host from the lane's f32
 logits with a ``torch.Generator`` seeded from (request seed, draw index) —
 they cannot reproduce the reference's ``jax.random`` draws.
@@ -83,6 +88,7 @@ untimed.
 """
 from __future__ import annotations
 
+import inspect
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -192,7 +198,10 @@ class ServeEngine:
     card raises.  ``metrics``: True (a fresh registry), False (the no-op
     registry) or a registry to share; ``trace``: an event sink or None.
     Requests are token prompts: a VLM is served without patch embeddings,
-    and an encoder-decoder config is refused, as in the reference."""
+    and an encoder-decoder config is refused, as in the reference.  A
+    family without a paged layout or chunked prefill (hybrid, ssm) refuses
+    ``paged`` and ``prefill_chunk``; its cache report is the analytic
+    Eq. 1 report (attention layers only)."""
 
     def __init__(self, cfg, params, swan=None, projections=None,
                  max_seq: int = 4096, n_slots: int = 4, paged: bool = False,
@@ -236,7 +245,15 @@ class ServeEngine:
             raise ValueError(f"admission={admission!r}: 'fifo' or 'srf'")
         self.admission = admission
         self.pool_grow = pool_grow
-        self._bucketing = bucket_prompts
+        prefill_sig = inspect.signature(self.api.prefill).parameters
+        decode_sig = inspect.signature(self.api.decode_step).parameters
+        # per-request k needs a family whose prefill and decode take
+        # k_active; prompt buckets need a prefill that takes true_len (a
+        # recurrent state would absorb the padding)
+        self._k_threading = (self.swan is not None
+                             and "k_active" in prefill_sig
+                             and "k_active" in decode_sig)
+        self._bucketing = bucket_prompts and "true_len" in prefill_sig
         self._k_fill = 0 if self.swan is None else self.swan.k_max
         # whether the hand-written kernels back the decode and chunk reads
         # (kernels.dispatch's gate, asked for a cache on this device)
@@ -251,6 +268,10 @@ class ServeEngine:
             if max_seq % prefill_chunk:
                 raise ValueError(f"max_seq={max_seq} not divisible by "
                                  f"prefill_chunk={prefill_chunk}")
+            if self.api.prefill_chunk is None:
+                raise ValueError(f"{cfg.family!r} family cannot resume a "
+                                 "prefill mid-prompt (recurrent state) — "
+                                 "chunked prefill unsupported")
         if prefill_slots < 1:
             raise ValueError(f"prefill_slots={prefill_slots} must be >= 1")
         if prefill_slots > 1 and prefill_chunk is None:
@@ -271,6 +292,8 @@ class ServeEngine:
             if self.swan is None:
                 raise ValueError("paged=True requires SWAN: only the sparse "
                                  "sides have a paged layout")
+            if self.api.init_paged_state is None:
+                raise ValueError(f"{cfg.family!r} family has no paged cache")
             if max_seq % page_size:
                 raise ValueError(f"max_seq={max_seq} not divisible by "
                                  f"page_size={page_size}")
@@ -328,6 +351,9 @@ class ServeEngine:
         if req.k is not None:
             if self.swan is None:
                 raise ValueError(f"request {req.uid}: per-request k needs SWAN")
+            if not self._k_threading:
+                raise ValueError(f"{self.cfg.family!r} family does not "
+                                 "support per-request k overrides")
             if req.k > self.swan.k_max:
                 raise ValueError(f"request {req.uid}: k={req.k} > allocated "
                                  f"k_max={self.swan.k_max}")
@@ -470,7 +496,7 @@ class ServeEngine:
 
         def fn(tok, pos, k):
             kw: Dict[str, Any] = {}
-            if self.swan is not None:
+            if self._k_threading:
                 kw["k_active"] = k
             if tab is not None:
                 kw["page_tab"] = tab
@@ -496,7 +522,7 @@ class ServeEngine:
 
         def fn(toks, slot, start, tlen, k):
             kw: Dict[str, Any] = {}
-            if self.swan is not None:
+            if self._k_threading:
                 kw["k_active"] = k
             if tab is not None:
                 kw["page_tab"] = tab
@@ -551,11 +577,12 @@ class ServeEngine:
                     x.fill_(-1)
                 else:
                     hc._bits(x).zero_()
-            kw = {"k_active": k} if self.swan is not None else {}
+            kw = {"k_active": k} if self._k_threading else {}
+            if self._bucketing:
+                kw["true_len"] = tlen
             logits, _ = self.api.prefill(
                 self.params, self.cfg, {"tokens": toks}, state1, self.swan,
-                self.projections, true_len=tlen if self._bucketing else None,
-                **kw)
+                self.projections, **kw)
             return logits[:, -1]
         return self._dispatch(
             "prefill", pad_len, fn, [toks, k, tlen],
@@ -1124,11 +1151,20 @@ class ServeEngine:
     # Accounting
     # ------------------------------------------------------------------
 
+    def _n_attn(self) -> int:
+        """Attention layers: the layers that hold a KV cache."""
+        return sum(1 for i in range(self.cfg.n_layers)
+                   if self.cfg.layer_kind(i) == "attn")
+
     def _slab_check(self) -> int:
         """The slab's reserved bytes (the analytic layout), checked against
         the bytes of the resident state: the slab commits the worst case
-        at init, so they must be equal."""
-        L = self.cfg.n_layers
+        at init, so they must be equal.  A recurrent family's state has no
+        such layout: its bytes are the analytic Eq. 1 report's."""
+        if self.api.init_paged_state is None:
+            return serve_cache_report(self.cfg, self.swan, self.n_slots,
+                                      self.max_seq)["bytes"]
+        L = self._n_attn()
         if self.swan is None:
             reserved = L * hc.dense_cache_bytes(self.cfg, self.n_slots,
                                                 self.max_seq)
@@ -1146,7 +1182,11 @@ class ServeEngine:
         ``cache_report()`` and the per-step ``kv_cache_*`` gauges:
         ``reserved_bytes`` / ``live_bytes`` (+ ``page_table_shipped_bytes``
         paged), with a one-entry ``shards`` breakdown (the reference's
-        single-device layout).  Host arithmetic only."""
+        single-device layout; None for a recurrent family, whose bytes are
+        the analytic Eq. 1 report's).  Host arithmetic only."""
+        if self.api.init_paged_state is None:
+            b = self._slab_bytes
+            return {"reserved_bytes": b, "live_bytes": b, "shards": None}
         if not self.paged:
             reserved = self._slab_bytes
             return {"reserved_bytes": reserved, "live_bytes": reserved,
@@ -1170,13 +1210,17 @@ class ServeEngine:
         and the shipped table prefix."""
         rep = serve_cache_report(self.cfg, self.swan, self.n_slots,
                                  self.max_seq)
+        if self.api.init_paged_state is None:
+            # recurrent families: the analytic Eq. 1 report, no shards
+            rep["reserved_bytes"] = rep["live_bytes"] = rep["bytes"]
+            return rep
         if not self.paged:
             self._slab_check()
         acct = self._cache_bytes()
         rep["reserved_bytes"] = acct["reserved_bytes"]
         rep["live_bytes"] = acct["live_bytes"]
         rep["shards"] = acct["shards"]
-        dense_phys = self.cfg.n_layers * hc.dense_cache_bytes(
+        dense_phys = self._n_attn() * hc.dense_cache_bytes(
             self.cfg, self.n_slots, self.max_seq)
         if not self.paged:
             rep["bytes"] = acct["reserved_bytes"]
@@ -1185,7 +1229,7 @@ class ServeEngine:
                 rep["saving"] = 1.0 - rep["bytes"] / dense_phys
             return rep
         rep["mode"] += "+paged"
-        rep["slab_bytes"] = self.cfg.n_layers * hc.cache_bytes(
+        rep["slab_bytes"] = self._n_attn() * hc.cache_bytes(
             self.cfg, self.swan, self.n_slots, self.max_seq)
         rep["bytes"] = acct["live_bytes"]
         rep["dense_bytes"] = dense_phys
@@ -1233,13 +1277,14 @@ class ServeEngine:
                 "prefilling lanes on this shard", shard=0).set(
                     sum(1 for s in self.slots
                         if s is not None and s.state == "prefilling"))
-        e = acct["shards"][0]
-        m.gauge("shard_kv_cache_reserved_bytes",
-                "cache bytes physically allocated on this shard",
-                shard=0).set(e["reserved_bytes"])
-        m.gauge("shard_kv_cache_live_bytes",
-                "live cache bytes on this shard", shard=0).set(
-                    e["live_bytes"])
+        if acct["shards"] is not None:
+            e = acct["shards"][0]
+            m.gauge("shard_kv_cache_reserved_bytes",
+                    "cache bytes physically allocated on this shard",
+                    shard=0).set(e["reserved_bytes"])
+            m.gauge("shard_kv_cache_live_bytes",
+                    "live cache bytes on this shard", shard=0).set(
+                        e["live_bytes"])
         if self.paged:
             m.gauge("shard_page_pool_live_pages",
                     "live pages on this shard", shard=0).set(

@@ -58,8 +58,16 @@ def test_model_cache_footprint_matches_reference(arch):
                                            batch, seq)
             want = ja.model_cache_footprint(j_config(arch), JSwan(**kw),
                                             batch, seq)
-            assert (got.dense_bytes, got.swan_bytes, got.saving) == \
-                (want.dense_bytes, want.swan_bytes, want.saving)
+            assert (got.dense_bytes, got.swan_bytes) == \
+                (want.dense_bytes, want.swan_bytes)
+            if want.dense_bytes == 0:
+                # no attention layer (rwkv6-3b): no saving to state, in
+                # either package
+                for fp in (got, want):
+                    with pytest.raises(ZeroDivisionError):
+                        fp.saving
+            else:
+                assert got.saving == want.saving
 
 
 @pytest.mark.parametrize("name", ["fig2a_compression", "breakeven",

@@ -114,8 +114,10 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
     a lockstep session of a MoE smoke config (``models.moe``, q/k/v
     biases) and lockstep SWAN sessions of the VLM (patch embeddings, G =
     7) and the encoder-decoder (``models.encdec``, the compressed cross
-    cache) smoke configs run on the CPU with neither ``jax`` nor any
-    ``repro.`` or ``benchmarks`` module imported."""
+    cache) smoke configs, a lockstep SWAN session and an engine of the
+    hybrid smoke config (``models.jamba``, ``models.mamba``) and an engine
+    of the RWKV one (``models.rwkv_model``) run on the CPU with neither
+    ``jax`` nor any ``repro.`` or ``benchmarks`` module imported."""
     code = (
         "import sys\n"
         "from repro_torch.configs import SwanConfig, get_smoke_config\n"
@@ -181,6 +183,24 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
         "    xo = xs.generate(make_batch(xcfg, 2, 8, device='cpu'), 4)\n"
         "    assert tuple(xo.shape) == (2, 4), arch\n"
         "    assert xs.pos == 8 + 3 + xcfg.n_prefix_tokens, (arch, xs.pos)\n"
+        "import repro_torch.models.jamba, repro_torch.models.rwkv_model\n"
+        "hcfg = get_smoke_config('jamba-1.5-large-398b')\n"
+        "hapi = get_model(hcfg)\n"
+        "hp = hapi.init_params(hcfg, 0, 'cpu')\n"
+        "hpj = calibrate_swan(hapi, hcfg, hp, make_batch(hcfg, 2, 16,"
+        " device='cpu'))\n"
+        "hs = ServeSession(hcfg, hapi.absorb(hp, hcfg, hpj), swan=SwanConfig("
+        "k_max=8, buffer=4), projections=hpj, max_seq=32, batch=2,"
+        " device='cpu')\n"
+        "assert tuple(hs.generate(make_batch(hcfg, 2, 8, device='cpu'), 4)"
+        ".shape) == (2, 4)\n"
+        "for rc, rw in ((hcfg, hp), (get_smoke_config('rwkv6-3b'), None)):\n"
+        "    rw = rw if rw is not None else get_model(rc).init_params(rc, 0,"
+        " 'cpu')\n"
+        "    re = ServeEngine(rc, rw, max_seq=32, n_slots=2, device='cpu')\n"
+        "    rd = re.run([Request(uid=i, tokens=list(range(3, 3 + 4 * i)),"
+        " max_new_tokens=3) for i in (1, 2, 3)])\n"
+        "    assert sorted(len(c.tokens) for c in rd) == [3, 3, 3], rc.name\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('repro', 'benchmarks')]\n"
         "assert not bad, bad\n"
