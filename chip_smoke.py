@@ -79,6 +79,25 @@ Phases, each of which must pass (any failure exits non-zero):
               then serves the trace with metrics off, on, on, off: the
               same tokens and dispatches, and graphed step ms with
               metrics on and off.
+   audit    — the serve auditor (``repro_torch.analysis.lint.audit.
+              run_audit``) over the graphs phase's two warmed engines
+              (their graph descriptions kept; warmed here under ``--only
+              audit``) and two eager engines whose SWAN reads take the
+              plain PyTorch path on the card: every decode graph holds 32
+              B1 (slab) or B2 (pages) split + merge nodes and every chunk
+              graph 32 B3 or B4 nodes (CUDA's DOT description of each
+              graph and the wrappers' capture tallies agree), no graph a
+              device-to-host memcpy, a host node or an NCCL kernel; a
+              second warmup and a mixed trace capture nothing; each
+              engine step blocks the host only at the token fetch (cost
+              analyzer + CUDA sync debug mode); the kernel prechecks pass
+              at the engine's shapes; the logical-view detector passes on
+              the paged kernel path and trips on the plain path.  Every
+              check printed as JSON.  Then the lockstep cell's decode step
+              and 4 x 2048 prefill counted by the cost analyzer (eager) and
+              timed graphed: their roofline rows
+              (``analysis.report.roofline_table``) with the card's name
+              and power limit.
 8. dense   — yi-9b (d_model 4096, 32/4 heads: G = 8; 24 of its 48
               layers: the script's time limit) and olmo-1b (16 layers,
               d_model 2048, 16/16 heads: G = 1, non-parametric LayerNorm,
@@ -1493,17 +1512,11 @@ def drive(kernels, eng, reqs, label):
 
 def check_launches(run, layout, n_layers, label):
     """Each layout's kernels launched n_layers times per dispatch, the other
-    layout's never."""
-    launches, d = run["launches"], run["dispatches"]
-    dec, chunk = ("swan_decode", "swan_chunk_stats") if layout == "slab" else \
-        ("swan_decode_paged", "swan_chunk_stats_paged")
-    check(launches[dec] == n_layers * d["decode"]
-          and launches[chunk] == n_layers * d["chunk"]
-          and d["decode"] > 0 and d["chunk"] > 0,
-          f"[{label}] launches {launches} != {n_layers} x dispatches {d}")
-    others = set(launches) - {dec, chunk}
-    check(all(launches[o] == 0 for o in others),
-          f"[{label}] another layout's kernel ran: {launches}")
+    layout's never (the serve auditor's ``launch_check``)."""
+    from repro_torch.analysis.lint.audit import launch_check
+    c = launch_check(label, run["launches"], run["dispatches"], layout,
+                     n_layers)
+    check(c.status == "pass", f"[{label}] {c.detail}")
 
 
 def engine_run(kernels, model, label, **kw):
@@ -1761,7 +1774,7 @@ def lockstep_graphs(kernels, model, profile=True, summary=None, swan=None,
     return g["launches"], e["launches"]
 
 
-def engine_graphs(kernels, model, eager):
+def engine_graphs(kernels, model, eager, keep=False):
     """The engine graphed, slab then paged: warmup(max_prompt_len=2048)
     captures the whole family (census >= expected in every bucket); the
     trace gives the eager runs' tokens, dispatches and cache_report, with
@@ -1769,11 +1782,13 @@ def engine_graphs(kernels, model, eager):
     engine with async_fetch); then the slab engine serves a mixed trace
     that captures nothing new; and on each layout a profile of graphed
     engine steps counts B1 and B3 (slab) or B2 and B4 (paged)
-    executions."""
+    executions.  With ``keep`` each engine keeps its graphs' descriptions
+    (``GraphSet.keep_census``) and is returned for the audit phase."""
     import torch
+    from repro_torch.analysis.lint.audit import capture_check
     from repro_torch.obs import EventTrace
     cfg = model[0]
-    counts, on_off = {}, {}
+    counts, on_off, warmed = {}, {}, {}
     for layout, kw in (("slab", {}), ("paged", dict(paged=True,
                                                     page_size=PS))):
         gc.collect()
@@ -1781,6 +1796,7 @@ def engine_graphs(kernels, model, eager):
         torch.cuda.reset_peak_memory_stats()
         mem0 = torch.cuda.memory_allocated()
         eng = make_engine(model, graphs=True, trace=EventTrace(), **kw)
+        eng._graphs.keep_census = keep
         mem_state = torch.cuda.memory_allocated()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1858,12 +1874,156 @@ def engine_graphs(kernels, model, eager):
                           "chunk": cfg.n_layers * dc}
         check_executions(label, window)
         eng.run()
-        check(sum(g.lazy_captures.values()) == lazy0,
-              f"[{layout} graphed] captured {dict(g.lazy_captures)} graphs "
-              "mid-serve after warmup")
+        c = capture_check(f"{layout} graphed", lazy0,
+                          sum(g.lazy_captures.values()))
+        check(c.status == "pass", f"[{layout} graphed] {c.detail}: "
+              f"{dict(g.lazy_captures)}")
+        if keep:
+            warmed[layout] = eng
         del eng, g
     monolithic_graphs(kernels, model)
-    return counts, on_off
+    return counts, on_off, warmed
+
+
+# the audit phase's checks that must be present and pass (the rest must
+# not fail either)
+AUDIT_REQUIRED = tuple(
+    f"{what}/{layout}-kernel/{fam}"
+    for layout in ("slab", "paged") for fam in ("decode", "chunk")
+    for what in ("graph-kernels", "host-transfers", "collectives")) + tuple(
+    f"{what}/{layout}-kernel{tail}" for layout in ("slab", "paged")
+    for what, tail in (("warmup", "/coverage"), ("warmup", "/idempotent"),
+                       ("warmup", "/zero-capture"), ("captures", "/mixed"),
+                       ("host-sync", ""), ("exec-count", "/steady-state"))) + (
+    "kernel-precheck/swan_decode", "kernel-precheck/swan_decode_paged",
+    "kernel-precheck/swan_chunk_stats",
+    "kernel-precheck/swan_chunk_stats_paged",
+    "kernel-precheck/flash_attention",
+    f"logical-view/paged-kernel/decode@pg{S // PS}",
+    f"logical-view/paged/decode@pg{S // PS}")
+ROOFLINE_STEPS = 16             # graphed decode steps timed for the rows
+
+
+def audit_phase(kernels, model, warmed):
+    """The serve auditor (``repro_torch.analysis.lint.audit.run_audit``)
+    on the card at llama3-8b's full width: the graphs phase's warmed
+    engines (slab and 64-token pages, warmup(max_prompt_len=2048), their
+    graph descriptions kept), or engines warmed here when that phase did
+    not run; the plain-read engines eager on the card.  Every check is
+    printed as JSON; a failed one, or a required one missing or not
+    passing, fails the run."""
+    from repro_torch.analysis.lint.audit import run_audit
+    from repro_torch.configs import SwanConfig
+    cfg = model[0]
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    checks = run_audit(device="cuda", model=model,
+                       swan=SwanConfig(k_max=K, buffer=BUF), max_seq=S,
+                       page_size=PS, n_slots=ENGINE_SLOTS,
+                       prefill_chunk=ENGINE_CHUNK, prefill_slots=ENGINE_LANES,
+                       max_prompt_len=WARM_PROMPT, engines=warmed,
+                       reqs=lambda: mixed_requests(cfg))
+    launches = {k.name: k.launches for k in kernels}
+    for c in checks:
+        print(json.dumps({"audit": c.to_json()}), flush=True)
+    by = {c.check: c for c in checks}
+    counts = Counter(c.status for c in checks)
+    log(f"  audit: {len(checks)} checks {dict(counts)} in "
+        f"{time.perf_counter() - t0:.1f} s (engines "
+        f"{'from the graphs phase' if warmed else 'warmed here'})")
+    fails = [c.to_json() for c in checks if c.status == "fail"]
+    check(not fails, f"audit checks failed: {fails}")
+    missing = [n for n in AUDIT_REQUIRED
+               if n not in by or by[n].status != "pass"]
+    check(not missing, f"audit checks missing or not passing: {missing}")
+    return launches
+
+
+def roofline_rows(kernels, model, smi):
+    """Roofline rows of the lockstep cell (llama3-8b, batch 4, a 2048-token
+    prompt): its decode step (context 2048) and its 4 x 2048 prefill, each
+    counted by the cost analyzer on an eager session (graph replays run no
+    aten op; the analyzer sees the kernels' launches) and timed graphed;
+    printed through ``report.roofline_table`` with the card's name and
+    power limit.  Returns the records."""
+    import torch
+    from repro_torch.analysis.cost import CostMode
+    from repro_torch.analysis.report import measured_share, roofline_table
+    from repro_torch.analysis.roofline import roofline_report
+    from repro_torch.configs import ShapeConfig, SwanConfig
+    from repro_torch.launch.io import make_batch
+    from repro_torch.runtime.serve_loop import ServeSession
+
+    cfg, params, projections = model
+    swan = SwanConfig(k_max=K, buffer=BUF, mode="topk")
+    prompt = make_batch(cfg, B, PROMPT, seed=11, device="cuda")
+
+    def session(graphs):
+        return ServeSession(cfg, params, swan=swan, projections=projections,
+                            max_seq=S, batch=B, graphs=graphs, device="cuda")
+    sess = session(False)
+    with CostMode() as m:
+        logits = sess.prefill(prompt)
+    pre = m.costs
+    tok = torch.argmax(logits.float(), dim=-1)
+    with CostMode() as m:
+        sess.decode(tok)
+    dec = m.costs
+    del sess, logits
+    check(dec.kernel_launches == {"swan_decode": cfg.n_layers},
+          f"the analyzed decode step reported {dec.kernel_launches}")
+    check(pre.host_transfers == dec.host_transfers == 0,
+          "an analyzed step crossed to the host")
+
+    gs = session(True)
+    times = {}
+    for what, fn in (("prefill", lambda: gs.prefill(prompt)),
+                     ("decode", lambda: gs.decode(tok))):
+        fn()                            # capture, then time replays
+        n = 1 if what == "prefill" else ROOFLINE_STEPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+        times[what] = (time.perf_counter() - t0) * 1e3 / n
+        if what == "prefill":
+            tok = torch.argmax(out.float(), dim=-1)
+    del gs
+    recs = []
+    for what, cost, shape in (
+            ("decode", dec, ShapeConfig(f"decode b{B} ctx{PROMPT}", "decode",
+                                        PROMPT, B)),
+            ("prefill", pre, ShapeConfig(f"prefill {B}x{PROMPT}", "prefill",
+                                         PROMPT, B))):
+        rec = {"arch": cfg.name, "shape": shape.name, "swan": True,
+               "status": "ok", "n_devices": 1, "step_cost": cost.to_json(),
+               "measured": {"step_ms": times[what], "device": smi}}
+        rec["roofline"] = roofline_report(rec, cfg, shape, swan)
+        recs.append(rec)
+        kern = sum(o.hbm_bytes for o in cost.ops if o.kind == "kernel")
+        top = sorted(cost.by_name().items(),
+                     key=lambda kv: -kv[1]["hbm_bytes"])[:4]
+        log(f"  [{what}] analyzer: {cost.flops:.6e} flops (matmul "
+            f"{cost.flops_of('matmul'):.6e}, kernels "
+            f"{cost.flops_of('kernel'):.6e}), {cost.hbm_bytes:.6e} bytes "
+            f"(kernels {kern:.6e}), {len(cost.ops)} ops; top bytes "
+            f"{[(n, int(r['count']), r['hbm_bytes']) for n, r in top]}; "
+            f"model FLOPs {rec['roofline']['model_flops']:.6e}; graphed "
+            f"{times[what]:.4f} ms -> {measured_share(rec):.4%} of "
+            "989 TFLOP/s")
+    for line in roofline_table(recs).splitlines():
+        log(f"  {line}")
+    print(json.dumps({"roofline": [
+        {"shape": r["shape"], "model_flops": r["roofline"]["model_flops"],
+         "flops": r["step_cost"]["flops"],
+         "hbm_bytes": r["step_cost"]["hbm_bytes"],
+         "bottleneck": r["roofline"]["bottleneck"],
+         "step_ms": r["measured"]["step_ms"],
+         "model_flops_share": measured_share(r), "device": smi}
+        for r in recs]}), flush=True)
+    return recs
 
 
 def compiles(metrics, phase):
@@ -3561,9 +3721,9 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
     "swan_prune": ("src/repro_torch/kernels/swan_prune/csrc/swan_prune.cu",
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
-PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs", "dense",
-          "moe", "vlm", "encdec", "hybrid", "ssm", "chunk_exact", "obs",
-          "train")
+PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs", "audit",
+          "dense", "moe", "vlm", "encdec", "hybrid", "ssm", "chunk_exact",
+          "obs", "train")
 
 
 def main(argv=None) -> int:
@@ -3653,8 +3813,9 @@ def main(argv=None) -> int:
             "width (bf16)")
         record("bench", bench_phase(KERNELS))
         lap("bench")
-    model = (full_model() if {"serve", "engine", "graphs"} & set(phases)
-             else None)
+    model = (full_model() if {"serve", "engine", "graphs", "audit"}
+             & set(phases) else None)
+    warmed = {}
     if "serve" in phases:
         log("[serve] llama3-8b, SWAN k=64 b=128, lockstep ServeSession")
         record("serve", serve_phase(KERNELS, model))
@@ -3676,10 +3837,22 @@ def main(argv=None) -> int:
         record("graphs_lockstep", lockstep_graphs(KERNELS, model)[0])
         log(f"[graphs] ServeEngine graphed, slab then paged, after "
             f"warmup(max_prompt_len={WARM_PROMPT})")
-        counts_by_path, on_off = engine_graphs(KERNELS, model, eager_runs)
+        counts_by_path, on_off, warmed = engine_graphs(
+            KERNELS, model, eager_runs, keep="audit" in phases)
         for path, counts in counts_by_path.items():
             record(path, counts)
         lap("graphs")
+    if "audit" in phases:
+        log("[audit] the serve auditor at llama3-8b's full width: slab and "
+            f"{PS}-token pages graphed after warmup(max_prompt_len="
+            f"{WARM_PROMPT}), plain reads eager; roofline rows")
+        record("audit", audit_phase(KERNELS, model, warmed))
+        warmed.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        roofline_rows(KERNELS, model, smi)
+        lap("audit")
+    warmed.clear()
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -102,23 +102,35 @@ class CudaKernel:
     launch and nowhere else.  A launch made while the stream is being
     captured into a CUDA graph only records the kernel into the graph, so
     it counts in ``captured`` instead; ``runtime.graphs`` adds a graph's
-    recorded launches to ``launches`` at each replay."""
+    recorded launches to ``launches`` at each replay.
 
-    def __init__(self, name: str, library: CudaLibrary):
+    ``cost(*args)`` gives a launch's (flops, bytes) from the operands the
+    wrapper hands to :meth:`count_launch`; a launch outside a capture is
+    passed to ``CudaKernel.observer(kernel, args)`` while one is set (the
+    cost analyzer, ``analysis.cost.CostMode``, sets it while it counts)."""
+
+    observer: Optional[Callable[["CudaKernel", tuple], None]] = None
+
+    def __init__(self, name: str, library: CudaLibrary,
+                 cost: Optional[Callable[..., tuple]] = None):
         self.name = name
         self.library = library
+        self.cost = cost
         self.launches = 0
         self.captured = 0
 
     def lib(self) -> ctypes.CDLL:
         return self.library.lib()
 
-    def count_launch(self) -> None:
+    def count_launch(self, *args) -> None:
         import torch
-        if torch.cuda.is_current_stream_capturing():
+        if (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
             self.captured += 1
-        else:
-            self.launches += 1
+            return
+        self.launches += 1
+        if CudaKernel.observer is not None and self.cost is not None:
+            CudaKernel.observer(self, args)
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[Path]:

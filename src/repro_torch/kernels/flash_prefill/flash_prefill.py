@@ -22,10 +22,11 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.kernels.build import CudaKernel, CudaLibrary
 from repro_torch.kernels.flash_prefill.ref import flash_attention_plain
 
@@ -46,10 +47,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_prefill_error_string.restype = ctypes.c_char_p
 
 
+def launch_cost(q, k, causal: bool) -> Tuple[float, int]:
+    """(flops, bytes) of one launch on q [B,Sq,H,dh], k [B,Sk,Kv,dh]: the
+    roofline model's (``analysis.roofline``), for the cost analyzer."""
+    B, Sq, H, dh = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    nbytes = rl.flash_kernel_bytes(B=B, H=H, Kv=Kv, Sq=Sq, Sk=Sk, dh=dh,
+                                   dtype_bytes=q.element_size())
+    return rl.flash_kernel_flops(B=B, H=H, Sq=Sq, Sk=Sk, dh=dh,
+                                 causal=causal), nbytes
+
+
 LIBRARY = CudaLibrary("flash_prefill",
                       Path(__file__).with_name("csrc") / "flash_prefill.cu",
                       _bind)
-KERNEL = CudaKernel("flash_attention", LIBRARY)                  # B5
+KERNEL = CudaKernel("flash_attention", LIBRARY, launch_cost)     # B5
 
 
 def smem_bytes(dh: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -126,7 +138,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{KERNEL.name} launch failed: "
                            + lib.flash_prefill_error_string(err).decode())
-    KERNEL.count_launch()
+    KERNEL.count_launch(q, k, causal)
     return out
 
 

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.kernels.build import CudaKernel, CudaLibrary
 from repro_torch.kernels.swan_chunk.ref import (
     swan_chunk_stats_paged_reference, swan_chunk_stats_reference)
@@ -56,10 +57,27 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.swan_chunk_error_string.restype = ctypes.c_char_p
 
 
+def launch_cost(q, k_vals, sp_len, S: int) -> Tuple[float, int]:
+    """(flops, bytes) of one launch on q [P,Kv,Q,dh] over the packed rows
+    it reads, min(sp_len[p], S) for each lane, of ``k_vals``' width and
+    type: the roofline model's (``analysis.roofline``).  Reads ``sp_len``
+    to the host: the cost analyzer calls it, at each launch it counts."""
+    P, Kv, Q, dh = q.shape
+    k = k_vals.shape[3]
+    rows = int(sp_len.clamp(0, S).sum())
+    nbytes = rl.swan_chunk_kernel_bytes(
+        B=P, Kv=Kv, Q=Q, dh=dh, S=S, k_max=k,
+        quantized=k_vals.dtype == torch.int8,
+        val_bytes=k_vals.element_size(), rows=rows)
+    return rl.swan_chunk_kernel_flops(B=P, Kv=Kv, Q=Q, S=S, k_max=k,
+                                      rows=rows), nbytes
+
+
 LIBRARY = CudaLibrary("swan_chunk",
                       Path(__file__).with_name("csrc") / "swan_chunk.cu", _bind)
-KERNEL = CudaKernel("swan_chunk_stats", LIBRARY)                 # slab (B3)
-KERNEL_PAGED = CudaKernel("swan_chunk_stats_paged", LIBRARY)     # pool (B4)
+KERNEL = CudaKernel("swan_chunk_stats", LIBRARY, launch_cost)       # B3
+KERNEL_PAGED = CudaKernel("swan_chunk_stats_paged", LIBRARY,
+                          launch_cost)                              # B4
 
 
 def smem_bytes(dh: int, k_max: int,
@@ -186,7 +204,7 @@ def _launch(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, sp_len,
     if err != 0:
         raise RuntimeError(f"{kernel.name} launch failed: "
                            + lib.swan_chunk_error_string(err).decode())
-    kernel.count_launch()
+    kernel.count_launch(q, k_vals, sp_len, S)
     return m, l, o
 
 

@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.core.hybrid_cache import per_seq_pos
 from repro_torch.core.swan_attention import gather_pages
 from repro_torch.kernels.build import CudaKernel, CudaLibrary
@@ -77,10 +78,30 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.swan_decode_error_string.restype = ctypes.c_char_p
 
 
+def launch_cost(q, k_vals, buf_k, sp_len, S: int) -> Tuple[float, int]:
+    """(flops, bytes) of one launch on q [B,Kv,G,dh] over the packed rows
+    it reads, min(sp_len[b], S) for each sequence, of ``k_vals``' width and
+    type, and the ring ``buf_k``: the roofline model's
+    (``analysis.roofline``).  Reads ``sp_len`` to the host: the cost
+    analyzer calls it, at each launch it counts."""
+    B, Kv, G, dh = q.shape
+    k, b = k_vals.shape[3], buf_k.shape[2]
+    rows = int(sp_len.clamp(0, S).sum())
+    nbytes = rl.swan_decode_kernel_bytes(
+        B=B, Kv=Kv, G=G, dh=dh, S=S, k_max=k, buffer=b,
+        quantized=k_vals.dtype == torch.int8,
+        val_bytes=k_vals.element_size(), act_bytes=q.element_size(),
+        rows=rows)
+    flops = rl.swan_decode_kernel_flops(B=B, Kv=Kv, G=G, dh=dh, S=S,
+                                        k_max=k, buffer=b, rows=rows)
+    return flops, nbytes
+
+
 LIBRARY = CudaLibrary("swan_decode",
                       Path(__file__).with_name("csrc") / "swan_decode.cu", _bind)
-KERNEL = CudaKernel("swan_decode", LIBRARY)                 # slab (B1)
-KERNEL_PAGED = CudaKernel("swan_decode_paged", LIBRARY)     # page pool (B2)
+KERNEL = CudaKernel("swan_decode", LIBRARY, launch_cost)        # slab (B1)
+KERNEL_PAGED = CudaKernel("swan_decode_paged", LIBRARY,
+                          launch_cost)                          # pool (B2)
 
 
 def _a16(n: int) -> int:
@@ -300,7 +321,7 @@ def _launch_one(kernel: CudaKernel, q, k_vals, k_idx, v_vals, v_idx, buf_k,
     if err != 0:
         raise RuntimeError(f"{kernel.name} launch failed: "
                            + lib.swan_decode_error_string(err).decode())
-    kernel.count_launch()
+    kernel.count_launch(q, k_vals, buf_k, sp_len, S)
     return out
 
 

@@ -26,6 +26,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.kernels.build import CudaKernel, CudaLibrary
 from repro_torch.kernels.swan_prune.ref import swan_prune_reference
 
@@ -49,9 +50,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.swan_prune_error_string.restype = ctypes.c_char_p
 
 
+def launch_cost(x, p_rot, k_max: int) -> Tuple[float, int]:
+    """(flops, bytes) of one launch on x [B,Kv,S,dh]: the roofline model's
+    (``analysis.roofline``), for the cost analyzer."""
+    B, Kv, S, dh = x.shape
+    nbytes = rl.swan_prune_kernel_bytes(B=B, Kv=Kv, S=S, dh=dh, k_max=k_max,
+                                        x_bytes=x.element_size(),
+                                        p_bytes=p_rot.element_size())
+    return rl.swan_prune_kernel_flops(B=B, Kv=Kv, S=S, dh=dh), nbytes
+
+
 LIBRARY = CudaLibrary("swan_prune",
                       Path(__file__).with_name("csrc") / "swan_prune.cu", _bind)
-KERNEL = CudaKernel("swan_prune", LIBRARY)                       # B6
+KERNEL = CudaKernel("swan_prune", LIBRARY, launch_cost)          # B6
 
 
 def smem_bytes(x_bytes: int) -> int:
@@ -115,7 +126,7 @@ def _launch(x, p_rot, k_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if err != 0:
         raise RuntimeError(f"{KERNEL.name} launch failed: "
                            + lib.swan_prune_error_string(err).decode())
-    KERNEL.count_launch()
+    KERNEL.count_launch(x, p_rot, k_max)
     return vals, idx
 
 

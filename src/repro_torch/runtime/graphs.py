@@ -30,9 +30,18 @@ in ``repro_torch.obs.compile_events`` (the engine's
 eager.  Kernel launches
 recorded during a capture (``CudaKernel.captured``) become the graph's
 tally, added to each kernel's ``launches`` at every replay.
+
+For the serve auditor (``analysis.lint.audit``), a set whose
+``keep_census`` is on keeps each graph's description (``keep_graph=True``)
+and hands it out as CUDA's DOT text (:meth:`GraphSet.dot`:
+``cuGraphDebugDotPrint``), with the kernel tally of its capture
+(:meth:`GraphSet.tally`).
 """
 from __future__ import annotations
 
+import ctypes
+import os
+import tempfile
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -77,6 +86,7 @@ class GraphSet:
         self.replays: Counter = Counter()
         self.capture_s = 0.0
         self.warming = False            # set while a warmup captures
+        self.keep_census = False        # keep graph descriptions (audit)
 
     def count(self, family: str) -> int:
         """Graphs held in ``family``."""
@@ -99,7 +109,7 @@ class GraphSet:
         with torch.cuda.stream(side):
             fn(*inputs)
         cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_census)
         before = {k: k.captured for k in KERNELS}
         with torch.cuda.graph(graph, pool=self._pool):
             outputs = fn(*inputs)
@@ -138,3 +148,34 @@ class GraphSet:
             k.launches += n
         self.replays[family] += 1
         return g.outputs
+
+    def tally(self, family: str, key: Hashable) -> Dict[str, int]:
+        """The kernel launches recorded while the bucket's graph was
+        captured, by kernel name: what each replay launches."""
+        g = self._graphs[(family, key)]
+        return {k.name: n for k, n in g.tally.items()}
+
+    def dot(self, family: str, key: Hashable) -> str:
+        """CUDA's DOT description of the bucket's graph (its nodes:
+        kernels with their symbols, memcpys with their direction, host
+        nodes); needs ``keep_census`` on before the capture."""
+        g = self._graphs[(family, key)]
+        if not self.keep_census or not hasattr(g.graph, "raw_cuda_graph"):
+            raise RuntimeError("graph descriptions are kept only when "
+                               "keep_census is set before the capture")
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuGraphDebugDotPrint.argtypes = [ctypes.c_void_p,
+                                             ctypes.c_char_p, ctypes.c_uint]
+        lib.cuGraphDebugDotPrint.restype = ctypes.c_int
+        fd, path = tempfile.mkstemp(suffix=".dot")
+        os.close(fd)
+        try:
+            rc = lib.cuGraphDebugDotPrint(
+                ctypes.c_void_p(g.graph.raw_cuda_graph()), path.encode(),
+                0)                      # terse: node types, symbols, kinds
+            if rc != 0:
+                raise RuntimeError(f"cuGraphDebugDotPrint failed: {rc}")
+            with open(path, "r", encoding="utf-8", errors="replace") as fh:
+                return fh.read()
+        finally:
+            os.unlink(path)

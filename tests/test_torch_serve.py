@@ -116,7 +116,9 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
     7) and the encoder-decoder (``models.encdec``, the compressed cross
     cache) smoke configs, a lockstep SWAN session and an engine of the
     hybrid smoke config (``models.jamba``, ``models.mamba``) and an engine
-    of the RWKV one (``models.rwkv_model``) run on the CPU with neither
+    of the RWKV one (``models.rwkv_model``), and the analysis layer (the
+    cost analyzer over a decode step, a roofline report, swanlint over the
+    port's tree, the serve auditor's prechecks) run on the CPU with neither
     ``jax`` nor any ``repro.`` or ``benchmarks`` module imported."""
     code = (
         "import sys\n"
@@ -201,6 +203,20 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
         "    rd = re.run([Request(uid=i, tokens=list(range(3, 3 + 4 * i)),"
         " max_new_tokens=3) for i in (1, 2, 3)])\n"
         "    assert sorted(len(c.tokens) for c in rd) == [3, 3, 3], rc.name\n"
+        "import repro_torch.analysis.cost, repro_torch.analysis.report\n"
+        "import repro_torch.analysis.lint, repro_torch.analysis.lint.audit\n"
+        "from repro_torch.analysis.cost import analyze_step\n"
+        "c = analyze_step(s.decode, out[:, -1])\n"
+        "assert c.flops_of('matmul') > 0 and c.host_transfers == 0\n"
+        "from repro_torch.configs import SHAPES\n"
+        "rep = repro_torch.analysis.roofline.roofline_report({'step_cost':"
+        " c.to_json(), 'n_devices': 1}, cfg, SHAPES['decode_32k'])\n"
+        "assert rep['model_flops'] > 0\n"
+        f"assert not [f for f in repro_torch.analysis.lint.run_lint({str(SRC.parent)!r})"
+        " if not f.suppressed]\n"
+        "assert all(ck.status == 'pass' for ck in repro_torch.analysis.lint"
+        ".audit.kernel_precheck_checks(cfg, SwanConfig(k_max=8, buffer=4), 32,"
+        " page_size=8, chunk_q=16))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('repro', 'benchmarks')]\n"
         "assert not bad, bad\n"
