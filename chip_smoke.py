@@ -25,9 +25,11 @@ Phases, each of which must pass (any failure exits non-zero):
               ``repro_torch/analysis/roofline.py``); for the decode
               kernels and winnowing also the host's µs per wrapper call
               and the device µs of their kernels (profiler).  Then B1-B4
-              at the served archs' other query groups: yi-9b's (Kv 4, G 8)
-              and olmo-1b's (Kv 16, G 1) at d_head 128, internvl2-1b's
-              (Kv 2, G 7) and whisper-small's (Kv 12, G 1) at d_head 64,
+              at the served archs' other query groups: yi-9b's (Kv 4, G 8),
+              olmo-1b's (Kv 16, G 1), jamba's (Kv 8, G 8) and llama3-405b's
+              (Kv 8, G 16: two launches of the G = 8 instance) at d_head
+              128, internvl2-1b's (Kv 2, G 7) and whisper-small's (Kv 12,
+              G 1) at d_head 64,
               every value type, chunks of 256 x G queries, each against
               its plain version and timed beside its bound; and B1/B2 at
               G in (3, 5, 6, 7, 12, 16), which the CUDA source has no
@@ -40,7 +42,8 @@ Phases, each of which must pass (any failure exits non-zero):
               llama3-8b width: every kernel launched, every roofline row
               finite and positive, the H100 floors of B1–B6 met (launch
               counts zeroed just before).
-4. serve    — full-width llama3-8b (bf16, seeded random weights) served
+4. serve    — llama3-8b at every width, 16 of its 32 layers (the
+              script's time limit; bf16, seeded random weights) served
               through the lockstep SWAN path, eagerly (``graphs=False``):
               calibrate, absorb, ``ServeSession.generate``.  The kernel
               launch counts are zeroed just before ``generate`` and read
@@ -50,22 +53,22 @@ Phases, each of which must pass (any failure exits non-zero):
               (Lemmas A.1/A.2), with the decode kernel on the path.
 6. engine   — the same model through ``ServeEngine`` with chunked
               concurrent prefill, eagerly, on the slab and then on the
-              paged pool: identical tokens, 32 launches of each layout's
-              kernels per dispatch (counts zeroed before each run, read
+              paged pool: identical tokens, one launch of each layout's
+              kernels per layer per dispatch (counts zeroed before each run, read
               after).
 7. graphs   — the same model through CUDA graphs (``runtime.graphs``):
               the lockstep session graphed against eager in this call
               (prefill and first decode logits, tokens, ms/step, which
               must be at most 0.6 x eager; a profile whose B1 executions
-              are 32 per step); the engine graphed on the slab and the
+              are one per layer per step); the engine graphed on the slab and the
               paged pool after ``warmup(max_prompt_len=2048)`` (census
               at or above ``expected`` in every bucket), serving the
               engine trace with the eager runs' tokens, dispatches and
-              ``cache_report()`` and 32 launches per dispatch counted
+              ``cache_report()`` and one launch per layer per dispatch counted
               through the replays (paged with ``async_fetch=True``); then
               on the slab a shuffled mixed trace that must capture no
               graph; on each layout a profile of graphed engine steps
-              (B1 and B3, or B2 and B4, executed 32 times per dispatch;
+              (B1 and B3, or B2 and B4, executed once per layer per dispatch;
               a short window is held against the per-replay records and
               another is traced); last, monolithic admission
               graphed without a warmup (prefill and insert graphs captured
@@ -83,9 +86,10 @@ Phases, each of which must pass (any failure exits non-zero):
               run_audit``) over the graphs phase's two warmed engines
               (their graph descriptions kept; warmed here under ``--only
               audit``) and two eager engines whose SWAN reads take the
-              plain PyTorch path on the card: every decode graph holds 32
-              B1 (slab) or B2 (pages) split + merge nodes and every chunk
-              graph 32 B3 or B4 nodes (CUDA's DOT description of each
+              plain PyTorch path on the card: every decode graph holds one
+              B1 (slab) or B2 (pages) split + merge node pair per layer and
+              every chunk graph one B3 or B4 node per layer (CUDA's DOT
+              description of each
               graph and the wrappers' capture tallies agree), no graph a
               device-to-host memcpy, a host node or an NCCL kernel; a
               second warmup and a mixed trace capture nothing; each
@@ -98,21 +102,26 @@ Phases, each of which must pass (any failure exits non-zero):
               timed graphed: their roofline rows
               (``analysis.report.roofline_table``) with the card's name
               and power limit.
-8. dense   — yi-9b (d_model 4096, 32/4 heads: G = 8; 24 of its 48
-              layers: the script's time limit) and olmo-1b (16 layers,
+8. dense   — yi-9b (d_model 4096, 32/4 heads: G = 8; 12 of its 48
+              layers: the script's time limit), olmo-1b (16 layers,
               d_model 2048, 16/16 heads: G = 1, non-parametric LayerNorm,
-              tied embeddings) at full width, bf16, seeded weights, each
-              after the llama3-8b model
-              is freed: calibrate, absorb, the lockstep session eager and
-              graphed (logits bit for bit or within 5e-2, tokens equal, B1
-              once per layer per step through the replays, graphed
-              ms/step at most 0.6 x eager); the engine trace eagerly on
-              the slab (B1, B3) and graphed at first use on the paged pool
-              with ``async_fetch`` (B2, B4): equal tokens and dispatches,
-              each layout's kernels once per layer per dispatch (plus each
-              capture's warm run); then 4 layers at full retention
-              against the dense cache (decode; two-chunk prefill, slab and
-              paged).  Seconds per part printed.
+              tied embeddings) and llama3-405b (d_model 16384, 128/8
+              heads: G = 16, d_ff 53248, vocab 128256; 2 of its 126
+              layers: 10.58 B params, 21.2 GB) at full width, bf16, seeded
+              weights, each after the previous model is freed: calibrate,
+              absorb, the lockstep session eager and graphed (logits bit
+              for bit or within 5e-2, tokens equal, B1 once per layer per
+              step through the replays, twice at G = 16 (two groups of
+              8), a graphed step at most 1/20 of an eager one's aten ops
+              and, but for llama3-405b's weight-bound step (the ratio
+              logged), at most 0.6 x its ms; device memory peaks); the
+              engine trace eagerly on the slab (B1, B3) and
+              graphed at first use on the paged pool with ``async_fetch``
+              (B2, B4): equal tokens and dispatches, each layout's kernels
+              once per layer per dispatch (B1/B2 twice at G = 16; plus
+              each capture's warm run); then 4 layers (llama3-405b: its 2)
+              at full retention against the dense cache (decode; two-chunk
+              prefill, slab and paged).  Seconds per part printed.
    moe     — deepseek-moe-16b (64 routed experts, top-6, 2 shared) and
               qwen2-moe-a2.7b (60 routed, top-4, 4 shared, q/k/v biases
               seeded N(0, 0.02)), both d_model 2048 and 16/16 heads
@@ -164,7 +173,7 @@ Phases, each of which must pass (any failure exits non-zero):
               chunked prefill against its token recurrence (the reference
               test's 1e-5).  Parameters, weight bytes read per decode step,
               Eq. 1 cache, recurrent state bytes, peak memory and seconds.
-   ssm     — rwkv6-3b at full width and depth (32 layers, d_model 2560,
+   ssm     — rwkv6-3b at full width, 16 of its 32 layers (d_model 2560,
               40 heads x 64, d_ff 8960), bf16, no SWAN: the lockstep
               session as in the hybrid phase, the engine trace eager and
               graphed at first use (one prefill graph per prompt length;
@@ -204,6 +213,11 @@ Phases, each of which must pass (any failure exits non-zero):
               of dense, the decode kernel launched in the buffered benches
               and not at ``buffer=0`` (counts zeroed before each bench).
 
+After the train phase the port's bench harness folds the bench and train
+phases' artifacts into ``build/bench_out/BENCH_SUMMARY_torch.json``
+(``repro_torch.benchmarks.run.aggregate``): every artifact ok, no gate
+failed, its tally printed.
+
 The last three lines are nvidia-smi's name and power limit of the card,
 one JSON object of kernel numbers (``launches`` summed over the main paths
 that ran the kernel — the bench, the lockstep serve, the engines, graphed
@@ -240,6 +254,14 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def groups(cfg):
+    """B1/B2 launches per attention layer per decode step: the groups of
+    ``swan_decode.g_plan`` for the config's query group (2 at llama3-405b's
+    G = 16, else 1); B3/B4 launch once per layer per chunk."""
+    from repro_torch.analysis.lint.audit import decode_groups
+    return decode_groups(cfg)
 
 
 def bound_of(label, ms, nbytes, flops):
@@ -814,13 +836,16 @@ def chunk_phase():
 # the served archs' other query groups: yi-9b (32/4 heads) and olmo-1b
 # (16/16) at d_head 128 and k 64, internvl2-1b (14/2: G = 7, the padded
 # plan's one launch of the G = 8 instance) and whisper-small's decoder
-# (12/12) at d_head 64 and k 32, and jamba-1.5-large-398b's attention layer
-# (64/8) at d_head 128 and k 64, as the dense, vlm, encdec and hybrid
-# phases serve them: (arch, Kv, G, d_head, k)
+# (12/12) at d_head 64 and k 32, jamba-1.5-large-398b's attention layer
+# (64/8) and llama3-405b (128/8: G = 16, two launches of the G = 8
+# instance, against jamba's one at the same Kv) at d_head 128 and k 64, as
+# the dense, vlm, encdec and hybrid phases serve them: (arch, Kv, G,
+# d_head, k)
 SERVED_GROUPS = (("yi-9b", 4, 8, DH, K), ("olmo-1b", 16, 1, DH, K),
                  ("internvl2-1b", 2, 7, 64, 32),
                  ("whisper-small", 12, 1, 64, 32),
-                 ("jamba-1.5-large-398b", 8, 8, DH, K))
+                 ("jamba-1.5-large-398b", 8, 8, DH, K),
+                 ("llama3-405b", 8, 16, DH, K))
 
 
 def served_groups_phase():
@@ -1287,9 +1312,9 @@ def serve_phase(kernels, model):
     decode_ms = (gen_s * 1e3 - prefill_ms[-1]) / steps
     check(tuple(out.shape) == (B, NEW_TOKENS), f"tokens shape {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids out of range")
-    check(launches["swan_decode"] == cfg.n_layers * steps,
+    check(launches["swan_decode"] == groups(cfg) * cfg.n_layers * steps,
           f"swan_decode launched {launches['swan_decode']} times, expected "
-          f"{cfg.n_layers} x {steps}")
+          f"{groups(cfg)} x {cfg.n_layers} x {steps}")
     rep = sess.cache_report()
     log(f"  prefill {B}x{PROMPT}: {prefill_ms[-1]:.1f} ms (cold {prefill_ms[0]:.1f} ms)")
     log(f"  generate {B}x{NEW_TOKENS}: {gen_s * 1e3:.1f} ms -> decode "
@@ -1510,12 +1535,13 @@ def drive(kernels, eng, reqs, label):
             "stats": stats}
 
 
-def check_launches(run, layout, n_layers, label):
-    """Each layout's kernels launched n_layers times per dispatch, the other
+def check_launches(run, layout, cfg, label):
+    """Each layout's kernels launched once per layer per chunk dispatch and
+    ``groups(cfg)`` times per layer per decode dispatch, the other
     layout's never (the serve auditor's ``launch_check``)."""
     from repro_torch.analysis.lint.audit import launch_check
     c = launch_check(label, run["launches"], run["dispatches"], layout,
-                     n_layers)
+                     cfg.n_layers, groups(cfg))
     check(c.status == "pass", f"[{label}] {c.detail}")
 
 
@@ -1525,7 +1551,7 @@ def engine_run(kernels, model, label, **kw):
     eng = make_engine(model, graphs=False, metrics=False, **kw)
     cfg = model[0]
     run = drive(kernels, eng, engine_requests(cfg), label)
-    check_launches(run, label, cfg.n_layers, label)
+    check_launches(run, label, cfg, label)
     return run, eng
 
 
@@ -1666,9 +1692,26 @@ def check_executions(label, window, attempts=3):
     check(False, f"[{label}] no traced window saw the expected executions")
 
 
+def aten_ops(fn, *args):
+    """The aten ops one call of ``fn`` dispatches (a CUDA graph's replay
+    dispatches none of its own)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn(*args)
+    return Count.n
+
+
 def lockstep_graphs(kernels, model, profile=True, summary=None, swan=None,
                     prompt_len=PROMPT, new_tokens=NEW_TOKENS, max_seq=S,
-                    label="lockstep", bitwise=False):
+                    label="lockstep", bitwise=False, speedup=GRAPH_SPEEDUP):
     """The lockstep session eager and graphed in one call: the first
     prefill and decode logits, the generated tokens, decode ms/step; with
     ``profile``, a profile of graphed decode steps.  Each session
@@ -1678,7 +1721,11 @@ def lockstep_graphs(kernels, model, profile=True, summary=None, swan=None,
     VLM's prompt carries its patch embeddings, an encoder-decoder's its
     frames.  ``swan`` defaults to SwanConfig(k_max=64, buffer=128).  With
     ``bitwise`` the graphed logits must equal the eager ones bit for bit
-    (else within 5e-2 of their scale)."""
+    (else within 5e-2 of their scale).  A graphed decode step must
+    dispatch at most 1/20 of the eager step's aten ops (a replay issues
+    only its operand copies) and, where ``speedup`` is given, take at most
+    ``speedup`` x the eager step's ms (None: the ratio is logged; for a
+    step bound by its weight reads, where a replay saves little)."""
     import torch
     from repro_torch.configs import SwanConfig
     from repro_torch.launch.io import make_batch
@@ -1723,14 +1770,17 @@ def lockstep_graphs(kernels, model, profile=True, summary=None, swan=None,
             f"{res[mode]['decode_ms']:.2f} ms/step, {res[mode]['tok_s']:.1f} "
             f"tok/s (prefill included); device memory peak "
             f"{res[mode]['peak_gib']:.2f} GiB; launches {launches}")
-        check(launches["swan_decode"] == cfg.n_layers * steps,
+        check(launches["swan_decode"] == groups(cfg) * cfg.n_layers * steps,
               f"[{label} {mode}] swan_decode launched "
-              f"{launches['swan_decode']} times, expected {cfg.n_layers} x "
-              f"{steps}")
+              f"{launches['swan_decode']} times, expected {groups(cfg)} x "
+              f"{cfg.n_layers} x {steps}")
         # a VLM's decode continues after its patch positions
         want_pos = cfg.n_prefix_tokens + prompt_len + new_tokens - 1
         check(sess.pos == want_pos,
               f"[{label} {mode}] session at {sess.pos}, expected {want_pos}")
+        # one more decode step with its aten ops counted: a replay issues
+        # a few (the operand copies), an eager step one set per layer
+        res[mode]["ops"] = aten_ops(sess.decode, out[:, -1])
         if mode == "graphed":
             g = sess._graphs
             rep = sess.cache_report()
@@ -1749,7 +1799,7 @@ def lockstep_graphs(kernels, model, profile=True, summary=None, swan=None,
             def window():
                 prof = trace_steps(step, 4, "graphed decode steps",
                                    graphs=sess._graphs)
-                return prof, {"decode": cfg.n_layers * 4}
+                return prof, {"decode": groups(cfg) * cfg.n_layers * 4}
             check_executions("lockstep graphed", window)
         del sess
     e, g = res["eager"], res["graphed"]
@@ -1764,11 +1814,16 @@ def lockstep_graphs(kernels, model, profile=True, summary=None, swan=None,
     same = bool(torch.equal(e["out"], g["out"]))
     log(f"  [{label}] graphed tokens == eager tokens: {same}; decode "
         f"{g['decode_ms']:.2f} vs {e['decode_ms']:.2f} ms/step "
-        f"({g['decode_ms'] / e['decode_ms']:.3f} x)")
+        f"({g['decode_ms'] / e['decode_ms']:.3f} x); aten ops per decode "
+        f"step {g['ops']} vs {e['ops']}")
     check(same, "graphed lockstep tokens differ from eager")
-    check(g["decode_ms"] <= GRAPH_SPEEDUP * e["decode_ms"],
-          f"graphed lockstep {g['decode_ms']:.2f} ms/step is not under "
-          f"{GRAPH_SPEEDUP} x eager {e['decode_ms']:.2f}")
+    check(20 * g["ops"] <= e["ops"],
+          f"[{label}] a graphed decode step dispatched {g['ops']} aten ops "
+          f"against the eager step's {e['ops']}: not a replay")
+    if speedup is not None:
+        check(g["decode_ms"] <= speedup * e["decode_ms"],
+              f"graphed lockstep {g['decode_ms']:.2f} ms/step is not under "
+              f"{speedup} x eager {e['decode_ms']:.2f}")
     if summary is not None:
         summary.update(res)
     return g["launches"], e["launches"]
@@ -1778,7 +1833,7 @@ def engine_graphs(kernels, model, eager, keep=False):
     """The engine graphed, slab then paged: warmup(max_prompt_len=2048)
     captures the whole family (census >= expected in every bucket); the
     trace gives the eager runs' tokens, dispatches and cache_report, with
-    32 launches per dispatch counted through the replays (the paged
+    one launch per layer per dispatch counted through the replays (the paged
     engine with async_fetch); then the slab engine serves a mixed trace
     that captures nothing new; and on each layout a profile of graphed
     engine steps counts B1 and B3 (slab) or B2 and B4 (paged)
@@ -1829,7 +1884,7 @@ def engine_graphs(kernels, model, eager, keep=False):
                                        else "")
         run = drive(kernels, eng, engine_requests(cfg), label)
         base = eager[layout]
-        check_launches(run, layout, cfg.n_layers, label)
+        check_launches(run, layout, cfg, label)
         check(run["tokens"] == base["tokens"],
               f"[{label}] tokens differ from the eager engine's")
         check(run["dispatches"] == base["dispatches"],
@@ -1870,7 +1925,7 @@ def engine_graphs(kernels, model, eager, keep=False):
                 f"{dd}; the eager engine's traced steps: see [engine]")
             check(dc > 0 and dd > 0, f"[{label}] the traced steps "
                   "dispatched no chunk or no decode")
-            return prof, {"decode": cfg.n_layers * dd,
+            return prof, {"decode": groups(cfg) * cfg.n_layers * dd,
                           "chunk": cfg.n_layers * dc}
         check_executions(label, window)
         eng.run()
@@ -2221,12 +2276,13 @@ def launcher_run(kernels, tmp: Path):
           and want["serve_captures"] > 0,
           f"[obs launcher] metrics/trace {got} != expected {want}")
     d = eng.dispatches
-    check(launches["swan_decode_paged"]
-          == eng.cfg.n_layers * (d["decode"] + lazy.get("decode", 0))
+    check(launches["swan_decode_paged"] == groups(eng.cfg) * eng.cfg.n_layers
+          * (d["decode"] + lazy.get("decode", 0))
           and launches["swan_chunk_stats_paged"]
           == eng.cfg.n_layers * (d["chunk"] + lazy.get("chunk", 0)),
           f"[obs launcher] launches {launches} != {eng.cfg.n_layers} x "
-          f"(dispatches {d} + captures' warm runs {lazy})")
+          f"(dispatches {d} + captures' warm runs {lazy}), decode x "
+          f"{groups(eng.cfg)}")
     # the profiled window: its steps' dispatches, each one graph replay
     (p0,) = [e["step"] for e in events if e["event"] == "profile_start"]
     (p1,) = [e["step"] for e in events if e["event"] == "profile_stop"]
@@ -2293,22 +2349,36 @@ def log_on_off(on_off, smi):
 # the dense phase: the dense family's other models at full width
 # ---------------------------------------------------------------------------
 
-DENSE_ARCHS = ("yi-9b", "olmo-1b")
-# the dense and moe phases serve these archs at half their published depth
-# (every width kept), so that the whole script, the hybrid and ssm phases
-# included, stays well inside its 1200 s
-HALF_DEPTH = {"yi-9b": 24, "deepseek-moe-16b": 14, "qwen2-moe-a2.7b": 12}
+DENSE_ARCHS = ("yi-9b", "olmo-1b", "llama3-405b")
+# the serving phases take these archs at a cut of their published depth
+# (every width kept), so that the whole script stays inside its 1200 s on
+# a slow host (one took 1257.5 s with llama3-8b and rwkv6-3b whole): the
+# llama3-8b model of the serve, engine, graphs and audit phases, rwkv6-3b
+# and the MoE archs at half of it, yi-9b at a quarter; llama3-405b at 2 of
+# its 126 layers (10.58 B params, 21.2 GB in bf16: one card's memory, with
+# the plain prefill's attention scores)
+DEPTH_CUT = {"llama3-8b": 16, "rwkv6-3b": 16, "yi-9b": 12,
+             "deepseek-moe-16b": 14, "qwen2-moe-a2.7b": 12, "llama3-405b": 2}
+# archs whose 4 x 2048 lockstep decode step is bound by its weight reads
+# at their cut (llama3-405b's 2 layers and 4.2 GB head: graphed 0.71 x
+# eager on an H100): the graphed/eager ratio is logged, and the replay is
+# held by its aten-op count (``lockstep_graphs``)
+DEVICE_BOUND = ("llama3-405b",)
+# layers of the full-retention checks (exact_phase, chunk_exact_phase):
+# 4, but llama3-405b's 2-layer cut (two 4-layer models would take 2 x 34 GB)
+EXACT_LAYERS = {"llama3-405b": 2}
 
 
 def served_model(arch):
-    """``full_model`` of ``arch``, cut to ``HALF_DEPTH`` layers where it
+    """``full_model`` of ``arch``, cut to ``DEPTH_CUT`` layers where it
     names the arch (logged)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if arch in HALF_DEPTH:
-        log(f"  [{arch}] depth cut {cfg.n_layers} -> {HALF_DEPTH[arch]} "
-            "layers (every width kept): the run's time limit")
-        cfg = cfg.replace(n_layers=HALF_DEPTH[arch])
+    if arch in DEPTH_CUT:
+        log(f"  [{arch}] depth cut {cfg.n_layers} -> {DEPTH_CUT[arch]} "
+            "layers (every width kept): the run's time limit and one "
+            "card's memory")
+        cfg = cfg.replace(n_layers=DEPTH_CUT[arch])
     return full_model(arch, cfg)
 
 
@@ -2327,7 +2397,7 @@ def dense_engine(kernels, model, arch, k_max=K):
     eng = make_engine(model, k_max, graphs=False, metrics=False)
     label = f"{arch} slab eager"
     slab = drive(kernels, eng, engine_requests(cfg, k_max), label)
-    check_launches(slab, "slab", cfg.n_layers, label)
+    check_launches(slab, "slab", cfg, label)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2343,12 +2413,12 @@ def dense_engine(kernels, model, arch, k_max=K):
     # each capture at first use runs its dispatch once eagerly (dead lanes)
     # before recording it: those launches count too
     check(launches["swan_decode_paged"]
-          == cfg.n_layers * (d["decode"] + lazy.get("decode", 0))
+          == groups(cfg) * cfg.n_layers * (d["decode"] + lazy.get("decode", 0))
           and launches["swan_chunk_stats_paged"]
           == cfg.n_layers * (d["chunk"] + lazy.get("chunk", 0))
           and launches["swan_decode"] == launches["swan_chunk_stats"] == 0,
           f"[{label}] launches {launches} != {cfg.n_layers} x (dispatches "
-          f"{d} + captures' warm runs {lazy})")
+          f"{d} + captures' warm runs {lazy}), decode x {groups(cfg)}")
     check(paged["tokens"] == slab["tokens"],
           f"[{arch}] paged graphed engine tokens != slab eager engine's")
     check(paged["dispatches"] == slab["dispatches"],
@@ -2370,22 +2440,30 @@ def dense_engine(kernels, model, arch, k_max=K):
 
 
 def dense_phase(kernels):
-    """yi-9b (G = 8; half depth, ``HALF_DEPTH``) and olmo-1b (G = 1,
-    non-parametric LayerNorm, tied embeddings; full depth) at full width,
-    bf16, seeded weights: calibrate,
+    """yi-9b (G = 8; a quarter of its depth, ``DEPTH_CUT``), olmo-1b (G = 1,
+    non-parametric LayerNorm, tied embeddings; full depth) and llama3-405b
+    (G = 16: B1/B2 in two groups of 8, twice per layer per decode step; 2
+    of 126 layers) at full width, bf16, seeded weights: calibrate,
     absorb, the lockstep session eager and graphed (logits and tokens
-    equal, B1 once per layer per step), the engine trace eager on the slab
-    and graphed on the paged pool, then 4 layers at full retention against
-    the dense cache (decode, and a two-chunk prefill on the slab and the
-    pool).  Returns the launch counts by path."""
+    equal, B1 ``groups(cfg)`` times per layer per step), the engine trace
+    eager on the slab and graphed on the paged pool, then 4 layers (2 for
+    llama3-405b, ``EXACT_LAYERS``) at full retention against the dense
+    cache (decode, and a two-chunk prefill on the slab and the pool).
+    Returns the launch counts by path."""
     import torch
     counts = {}
     for arch in DENSE_ARCHS:
         t0 = time.perf_counter()
         log(f"[dense] {arch}: full width, SWAN k={K} b={BUF}")
         model = served_model(arch)
+        cfg = model[0]
+        log(f"  [{arch}] G = {cfg.q_group}: B1/B2 {groups(cfg)} launch(es) "
+            "per layer per decode step")
         t1 = time.perf_counter()
-        graphed, eager = lockstep_graphs(kernels, model, profile=False)
+        lock = {}
+        graphed, eager = lockstep_graphs(
+            kernels, model, profile=False, summary=lock,
+            speedup=None if arch in DEVICE_BOUND else GRAPH_SPEEDUP)
         counts[f"dense_{arch}_lockstep_eager"] = eager
         counts[f"dense_{arch}_lockstep_graphed"] = graphed
         t2 = time.perf_counter()
@@ -2396,16 +2474,19 @@ def dense_phase(kernels):
         gc.collect()
         torch.cuda.empty_cache()
         t3 = time.perf_counter()
-        log(f"[dense] {arch}: 4 layers at full width, k=d_head vs the dense "
-            "cache (decode; two-chunk prefill, slab and paged)")
-        worst = max(exact_phase(kernels, arch),
-                    chunk_exact_phase(kernels, arch))
+        n_exact = EXACT_LAYERS.get(arch, 4)
+        log(f"[dense] {arch}: {n_exact} layers at full width, k=d_head vs "
+            "the dense cache (decode; two-chunk prefill, slab and paged)")
+        worst = max(exact_phase(kernels, arch, n_layers=n_exact),
+                    chunk_exact_phase(kernels, arch, n_layers=n_exact))
         gc.collect()
         torch.cuda.empty_cache()
         t4 = time.perf_counter()
         log(f"[dense] {arch}: worst relative logit error {worst:.4f}; "
             f"seconds: model {t1 - t0:.1f}, lockstep {t2 - t1:.1f}, engine "
             f"{t3 - t2:.1f}, exact {t4 - t3:.1f}, all {t4 - t0:.1f}")
+        log("[dense] " + summary_line(
+            arch, cfg, lock, worst, f"all {t4 - t0:.1f}"))
     return counts
 
 
@@ -2415,7 +2496,7 @@ EXACT_PROMPT = 512              # exact_phase's and chunk_exact_phase's prompt
 
 def moe_phase(kernels):
     """deepseek-moe-16b and qwen2-moe-a2.7b at full width and half depth
-    (``HALF_DEPTH``), bf16,
+    (``DEPTH_CUT``), bf16,
     seeded weights (qwen's biases seeded non-zero), through the dense
     phase's checks: the lockstep session eager and graphed, the engine
     trace eager on the slab and graphed at first use on the paged pool,
@@ -2666,7 +2747,7 @@ def encdec_exact(kernels, arch):
             break
         tok = ld.argmax(-1)
         logits = {n: s.decode(tok) for n, s in sessions.items()}
-    check(kern.launches - before == 2 * cfg.n_layers * 8,
+    check(kern.launches - before == 2 * groups(cfg) * cfg.n_layers * 8,
           "the exactness decode did not go through the kernel")
     return worst
 
@@ -2791,11 +2872,11 @@ def recurrent_lockstep(kernels, model, swan, label):
             f"{' (its graph capture and warm run included)' if mode == 'graphed' else ''}; "
             f"decode {decode_ms:.2f} ms/step over {steps} steps; device "
             f"memory peak {res[mode]['peak_gib']:.2f} GiB; launches {launches}")
-        check(launches["swan_decode"] == n_attn * steps
+        check(launches["swan_decode"] == groups(cfg) * n_attn * steps
               and all(n == 0 for name, n in launches.items()
                       if name != "swan_decode"),
               f"[{label} {mode}] launches {launches}, expected swan_decode "
-              f"{n_attn} x {steps}")
+              f"{groups(cfg)} x {n_attn} x {steps}")
         check(sess.pos == PROMPT + NEW_TOKENS - 1,
               f"[{label} {mode}] session at {sess.pos}")
         check(bool(torch.isfinite(first[0]).all())
@@ -2852,7 +2933,7 @@ def recurrent_engine(kernels, model, swan, label, modes=("eager", "graphed")):
         check(d["chunk"] == 0 and d["prefill"] == len(ENGINE_LENS),
               f"[{label} {mode}] dispatches {d}")
         check(launches["swan_decode"]
-              == n_attn * (d["decode"] + lazy.get("decode", 0))
+              == groups(cfg) * n_attn * (d["decode"] + lazy.get("decode", 0))
               and all(n == 0 for name, n in launches.items()
                       if name != "swan_decode"),
               f"[{label} {mode}] launches {launches} != {n_attn} x "
@@ -2912,7 +2993,7 @@ def full_retention(kernels, cfg, dense_params, swan_params, proj, batch,
             break
         tok = ld.argmax(-1)
         ld, ls = s_dense.decode(tok), s_swan.decode(tok)
-    check(kern.launches - before == n_attn_layers(cfg) * 8,
+    check(kern.launches - before == groups(cfg) * n_attn_layers(cfg) * 8,
           f"[{label}] the full-retention decode did not go through B1")
     return worst
 
@@ -3063,8 +3144,9 @@ def hybrid_phase(kernels):
 
 
 def ssm_phase(kernels):
-    """rwkv6-3b at full width and depth (32 layers, d_model 2560, 40 heads
-    x 64, d_ff 8960), bf16, seeded weights, no SWAN (no KV cache): the
+    """rwkv6-3b at full width, 16 of its 32 layers (``DEPTH_CUT``; d_model
+    2560, 40 heads x 64, d_ff 8960), bf16, seeded weights, no SWAN (no KV
+    cache): the
     lockstep session eager and graphed, the engine trace monolithically on
     the slab, eager and graphed; then in float32, prefill then decode
     against the forward's logits at the same positions (the reference's
@@ -3082,7 +3164,7 @@ def ssm_phase(kernels):
     t0 = time.perf_counter()
     cfg = get_config(SSM_ARCH)
     log(f"[ssm] {SSM_ARCH}: full width and depth, no SWAN (no KV cache)")
-    model = full_model(SSM_ARCH)
+    model = served_model(SSM_ARCH)
     leaves_n = sum(x.numel() for x in leaves(model[1]))
     t1 = time.perf_counter()
     lock = recurrent_lockstep(kernels, model, None, f"{SSM_ARCH} lockstep")
@@ -3139,17 +3221,18 @@ def ssm_phase(kernels):
         f"float32 {t4 - t3:.1f}, all {t4 - t0:.1f}")
 
 
-def small_model(arch="llama3-8b", dtype=None):
-    """The exactness phases' model: ``arch`` at full width, 4 layers,
-    seeded weights (params and activations in ``dtype``, the config's
-    bf16 by default), calibrated, with the full-retention SwanConfig (k =
-    d_head).  Returns (cfg, api, params, projections, absorbed, swan)."""
+def small_model(arch="llama3-8b", dtype=None, n_layers=4):
+    """The exactness phases' model: ``arch`` at full width, ``n_layers``
+    layers, seeded weights (params and activations in ``dtype``, the
+    config's bf16 by default), calibrated, with the full-retention
+    SwanConfig (k = d_head).  Returns (cfg, api, params, projections,
+    absorbed, swan)."""
     from repro_torch.configs import SwanConfig, get_config
     from repro_torch.launch.io import make_batch
     from repro_torch.models.registry import get_model
     from repro_torch.runtime.serve_loop import calibrate_swan
 
-    cfg = get_config(arch).replace(n_layers=4)
+    cfg = get_config(arch).replace(n_layers=n_layers)
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
     api = get_model(cfg)
@@ -3162,17 +3245,18 @@ def small_model(arch="llama3-8b", dtype=None):
     return cfg, api, params, proj, absorbed, full
 
 
-def chunk_exact_phase(kernels, arch="llama3-8b", dtype=None):
+def chunk_exact_phase(kernels, arch="llama3-8b", dtype=None, n_layers=4):
     """Full retention (k = d_head) makes winnowing lossless: a 512-token
     prompt prefilled as 2 chunks of 256 (slab, then paged) must give the
     dense monolithic prefill's last logits within the bf16 tolerance
-    (``dtype`` as in ``small_model``)."""
+    (``dtype`` and ``n_layers`` as in ``small_model``)."""
     import numpy as np
     import torch
     from repro_torch.launch.io import make_batch
     from repro_torch.runtime.page_pool import PagePool
 
-    cfg, api, params, proj, absorbed, full = small_model(arch, dtype)
+    cfg, api, params, proj, absorbed, full = small_model(arch, dtype,
+                                                         n_layers)
     n, C, max_seq = EXACT_PROMPT, ENGINE_CHUNK, 1024
     # token prompts, as the engine's chunks take them (no patch embeddings)
     prompt = {"tokens": make_batch(cfg, 1, n, seed=5, device="cuda")["tokens"]}
@@ -3243,16 +3327,17 @@ def route_flips(a, b):
             zip(a.calls, b.calls)]
 
 
-def exact_phase(kernels, arch="llama3-8b", batch=B, dtype=None):
+def exact_phase(kernels, arch="llama3-8b", batch=B, dtype=None, n_layers=4):
     """Full retention (k = d_head) against the dense cache: ``batch``
     prompts of 512 tokens, then 8 decode steps; the logits agree within
-    the bf16 tolerance at every step (``dtype`` as in ``small_model``).
+    the bf16 tolerance at every step (``dtype`` and ``n_layers`` as in
+    ``small_model``).
     For a MoE model also the share of prefill tokens routed differently
     by the two runs, per layer."""
     from repro_torch.launch.io import make_batch
     from repro_torch.runtime.serve_loop import ServeSession
 
-    cfg, _, params, proj, absorbed, full = small_model(arch, dtype)
+    cfg, _, params, proj, absorbed, full = small_model(arch, dtype, n_layers)
     s_swan = ServeSession(cfg, absorbed, swan=full, projections=proj,
                           max_seq=1024, batch=batch, graphs=False,
                           device="cuda")
@@ -3281,7 +3366,7 @@ def exact_phase(kernels, arch="llama3-8b", batch=B, dtype=None):
             break
         tok = ld.argmax(-1)
         ld, ls = s_dense.decode(tok), s_swan.decode(tok)
-    check(kern.launches - before == cfg.n_layers * 8,
+    check(kern.launches - before == groups(cfg) * cfg.n_layers * 8,
           "the exactness decode did not go through the kernel")
     return worst
 
@@ -3726,6 +3811,26 @@ PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs", "audit",
           "obs", "train")
 
 
+def bench_summary():
+    """The port's bench harness folds the artifacts the bench and train
+    phases wrote (``build/bench_out``) into ``BENCH_SUMMARY_torch.json``
+    (``repro_torch.benchmarks.run.aggregate``): every artifact ok, no gate
+    failed."""
+    import os
+    from repro_torch.benchmarks.run import SUMMARY, aggregate
+    os.environ["REPRO_BENCH_OUT"] = str(Path(__file__).resolve().parent
+                                        / "build" / "bench_out")
+    summary = aggregate()
+    log(f"[bench summary] {summary['n_benches']} artifacts "
+        f"({', '.join(sorted(summary['benches']))}), {summary['n_gates']} "
+        f"gates, {len(summary['gates_failed'])} failed -> "
+        f"{os.environ['REPRO_BENCH_OUT']}/{SUMMARY}")
+    check(summary["n_benches"] > 0 and summary["all_ok"]
+          and not summary["gates_failed"],
+          f"bench summary: {summary['gates_failed']}, all_ok "
+          f"{summary['all_ok']}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
@@ -3813,7 +3918,7 @@ def main(argv=None) -> int:
             "width (bf16)")
         record("bench", bench_phase(KERNELS))
         lap("bench")
-    model = (full_model() if {"serve", "engine", "graphs", "audit"}
+    model = (served_model("llama3-8b") if {"serve", "engine", "graphs", "audit"}
              & set(phases) else None)
     warmed = {}
     if "serve" in phases:
@@ -3902,6 +4007,8 @@ def main(argv=None) -> int:
     if "train" in phases:
         record("quality", train_phase(KERNELS, smi))
         lap("train")
+    if {"bench", "train"} & set(phases):
+        bench_summary()
     log(f"[done] {time.perf_counter() - t_start:.1f} s; by phase (s): {secs}")
     if set(phases) != set(PHASES):
         return 0                        # a partial run prints no result

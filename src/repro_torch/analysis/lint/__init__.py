@@ -16,10 +16,12 @@ Two layers:
   steps to the serve contract (graph counts, no host crossing, no
   collective, one launch per layer of each kernel, kernel prechecks).
 
-CLI: ``python -m repro_torch.analysis.lint [--json out] [--baseline file]``
-exits non-zero on active findings not in the baseline.  The port's tree
-lints clean: a finding is fixed or suppressed inline with a
-justification, so no baseline is committed.
+CLI: ``python -m repro_torch.analysis.lint [--check] [--report out]
+[--write-baseline] [--audit-smoke] [--baseline file]``, the reference
+CLI's flags: under ``--check`` it exits non-zero on active findings not in
+the baseline (``DEFAULT_BASELINE``, the port's own file) or on audit
+failures.  The port's tree lints clean: a finding is fixed or suppressed
+inline with a justification, so no baseline is committed.
 """
 from __future__ import annotations
 
@@ -28,16 +30,19 @@ import json
 import os
 from typing import Dict, Iterable, List, Optional
 
-from repro_torch.analysis.lint.rules import (RULES, SKIPPED_RULES, Finding,
+from repro_torch.analysis.lint.rules import (RULES, Finding,
                                              lint_paths, lint_source)
 
-__all__ = ["Finding", "RULES", "SKIPPED_RULES", "lint_source", "lint_paths",
+__all__ = ["Finding", "RULES", "lint_source", "lint_paths",
            "collect_files", "run_lint", "make_report", "load_baseline",
-           "new_findings", "DEFAULT_SCAN"]
+           "new_findings", "DEFAULT_SCAN", "DEFAULT_BASELINE"]
 
 # what Layer 1 walks by default: the port's package, its chip smoke run
 # and its examples (tests are exempt — they seed violations on purpose)
 DEFAULT_SCAN = ("src/repro_torch", "chip_smoke.py", "examples/torch_*.py")
+# the port's baseline: the reference's is bench_out/LINT_BASELINE.json,
+# which the port neither reads nor writes
+DEFAULT_BASELINE = os.path.join("bench_out", "LINT_BASELINE_torch.json")
 
 
 def collect_files(root: str, scan: Iterable[str] = DEFAULT_SCAN) -> List[str]:
@@ -64,14 +69,13 @@ def make_report(findings: List[Finding],
                 audit_checks: Optional[List] = None,
                 baseline: Optional[Dict] = None) -> Dict:
     """JSON-serializable report: the full finding list, the
-    active/suppressed split, the new-vs-baseline diff, the skipped rules
-    and optional Layer 2 results."""
+    active/suppressed split, the new-vs-baseline diff and optional Layer 2
+    results."""
     new = new_findings(findings, baseline)
     rep: Dict = {
         "tool": "swanlint",
         "version": 1,
         "rules": RULES,
-        "skipped_rules": SKIPPED_RULES,
         "findings": [f.to_json() for f in findings],
         "counts": {
             "total": len(findings),

@@ -58,7 +58,7 @@ __all__ = ["AuditCheck", "GraphCensus", "parse_graph_dot", "transfer_check",
            "collective_check", "count_check", "capture_check",
            "launch_check", "logical_view_check", "kernel_precheck_checks",
            "dispatch_checks", "audit_graphs", "warmup_checks",
-           "step_sync_checks", "run_audit"]
+           "step_sync_checks", "run_audit", "decode_groups"]
 
 # the kernels' CUDA symbols (mangled names contain them), per dispatch
 DECODE_SYMBOLS = ("swan_decode_kernel", "swan_decode_merge_kernel")
@@ -71,6 +71,15 @@ LAYOUT_KERNELS = {
 }
 # the engine's designed host fetch points (Layer 1's allowlist)
 FETCH_POINTS = ("_resolve_tokens", "_sample")
+
+
+def decode_groups(cfg) -> int:
+    """The decode kernels' (B1/B2) launches per attention layer per decode
+    dispatch: the groups of ``swan_decode.g_plan`` for the config's query
+    group (1 up to G = 8; 2 at llama3-405b's G = 16).  The chunk kernels
+    launch once per layer whatever G is."""
+    from repro_torch.kernels.swan_decode.swan_decode import g_plan
+    return g_plan(cfg.n_heads // cfg.n_kv_heads)[1]
 
 
 @dataclass
@@ -207,25 +216,28 @@ def capture_check(label: str, lazy_before: int, lazy_after: int
 
 def launch_check(label: str, launches: Dict[str, int],
                  dispatches: Dict[str, int], layout: str,
-                 n_layers: int) -> AuditCheck:
-    """Each layout's kernels launched ``n_layers`` times per decode and
-    chunk dispatch (counted through graph replays), the other layout's
-    and the bench-only kernels never."""
+                 n_layers: int, groups: int = 1) -> AuditCheck:
+    """Each layout's chunk kernel launched ``n_layers`` times per chunk
+    dispatch and its decode kernel ``groups x n_layers`` times per decode
+    dispatch (``decode_groups``; counted through graph replays), the other
+    layout's and the bench-only kernels never."""
     want = LAYOUT_KERNELS[layout]
-    ok = (launches[want["decode"]] == n_layers * dispatches["decode"]
+    ok = (launches[want["decode"]] == groups * n_layers * dispatches["decode"]
           and launches[want["chunk"]] == n_layers * dispatches["chunk"]
           and dispatches["decode"] > 0 and dispatches["chunk"] > 0)
     others = {n: c for n, c in launches.items()
               if n not in want.values() and c}
+    per = (f"{n_layers}" if groups == 1
+           else f"{groups} x {n_layers} decode, {n_layers} chunk")
     if not ok:
         return AuditCheck(f"launches/{label}", "fail",
-                          f"launches {launches} != {n_layers} x dispatches "
+                          f"launches {launches} != {per} x dispatches "
                           f"{dispatches}")
     if others:
         return AuditCheck(f"launches/{label}", "fail",
                           f"another layout's kernel ran: {others}")
     return AuditCheck(f"launches/{label}", "pass",
-                      f"{n_layers} launches per dispatch {dispatches}")
+                      f"{per} launches per dispatch {dispatches}")
 
 
 def logical_view_check(costs: StepCosts, label: str, view_elems: int,
@@ -481,14 +493,16 @@ def warmup_checks(eng, label: str, reqs: Sequence,
 
 def audit_graphs(eng, label: str, n_layers: int) -> List[AuditCheck]:
     """(ii)+(iii)+(iv) over every captured decode and chunk graph: the
-    node census of each (``GraphSet.dot``) must hold one launch of the
-    layout's decode (split + merge) or chunk kernel per attention layer,
-    as must the launch tally the wrappers recorded during its capture,
-    and no device-to-host memcpy, host node or NCCL kernel."""
+    node census of each (``GraphSet.dot``) must hold the layout's decode
+    kernel (split + merge) ``decode_groups`` times per attention layer, or
+    its chunk kernel once, as must the launch tally the wrappers recorded
+    during its capture, and no device-to-host memcpy, host node or NCCL
+    kernel."""
     if not _graphed(eng):
         return [AuditCheck(f"graphs/{label}", "skip", _no_graphs(eng))]
     layout = "paged" if eng.paged else "slab"
     out: List[AuditCheck] = []
+    per_layer = {"decode": decode_groups(eng.cfg), "chunk": 1}
     for fam, symbols in (("decode", DECODE_SYMBOLS), ("chunk", CHUNK_SYMBOLS)):
         keys = eng._graphs.keys(fam)
         if not keys:
@@ -496,6 +510,7 @@ def audit_graphs(eng, label: str, n_layers: int) -> List[AuditCheck]:
                                   "no graph captured"))
             continue
         want = LAYOUT_KERNELS[layout][fam]
+        n_want = per_layer[fam] * n_layers
         bad_k, bad_t, bad_c, nodes = [], [], [], Counter()
         for key in keys:
             census = parse_graph_dot(eng._graphs.dot(fam, key))
@@ -505,8 +520,8 @@ def audit_graphs(eng, label: str, n_layers: int) -> List[AuditCheck]:
                 n_sym = [census.count(s) for s in symbols]
             else:
                 n_sym = [sum(census.count(s) for s in symbols)]
-            if (any(n != n_layers for n in n_sym)
-                    or tally.get(want) != n_layers
+            if (any(n != n_want for n in n_sym)
+                    or tally.get(want) != n_want
                     or any(c for k, c in tally.items() if k != want)):
                 bad_k.append((key, n_sym, tally))
             if transfer_check(census, "").status != "pass":
@@ -516,9 +531,9 @@ def audit_graphs(eng, label: str, n_layers: int) -> List[AuditCheck]:
         tag = f"{label}/{fam}"
         out.append(AuditCheck(
             f"graph-kernels/{tag}", "fail" if bad_k else "pass",
-            f"{len(bad_k)} of {len(keys)} graphs off {n_layers} x {want}: "
+            f"{len(bad_k)} of {len(keys)} graphs off {n_want} x {want}: "
             f"{bad_k[:3]}" if bad_k else
-            f"{len(keys)} graphs, each {n_layers} x {want} "
+            f"{len(keys)} graphs, each {n_want} x {want} "
             f"({' + '.join(symbols) if fam == 'decode' else symbols[0]} "
             "nodes and wrapper launches)"))
         out.append(AuditCheck(

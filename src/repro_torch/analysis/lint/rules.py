@@ -32,9 +32,13 @@ SWAN103  Shape bucketing: non-power-of-two literal dims in
          ``expand``/``broadcast_to`` inside dispatch functions under
          ``runtime/`` / ``models/`` — each such literal mints a graph
          bucket of its own.
-SWAN104  Spec completeness: every serve-state leaf needs a sharding rule in
-         the port's ``sharding/serve_specs.py``, which waits for ROADMAP
-         A.8: the rule keeps its ID and reports "skip".
+SWAN104  Spec completeness (cross-module): every serve-state leaf key
+         that the cache and state initialisers build (``packed_side`` and
+         the ``init_*cache(s)``/``init_*state``/``init_*pool`` functions
+         of ``SPEC_STATE_MODULES``) must be listed in
+         ``repro_torch/sharding/serve_specs.py``'s ``KNOWN_LEAF_NAMES``,
+         read statically — the static twin of
+         ``serve_specs.unspecced_serve_leaves``.
 SWAN105  Observability: module-level metric containers (dicts named
          ``*_metrics``/``*_counters``/…) outside ``repro_torch/obs`` —
          counters and gauges go through the ``MetricsRegistry``.
@@ -58,12 +62,6 @@ RULES: Dict[str, str] = {
     "SWAN104": "serve-state leaf without a sharding-spec rule",
     "SWAN105": "ad-hoc metrics container outside MetricsRegistry",
 }
-# rules that keep their ID but cannot run yet, with the reason
-SKIPPED_RULES: Dict[str, str] = {
-    "SWAN104": "skip: the port has no sharding/serve_specs.py "
-               "(KNOWN_LEAF_NAMES) until ROADMAP A.8",
-}
-
 # top-level modules the port must never import
 FORBIDDEN_IMPORTS = ("jax", "jaxlib", "repro", "benchmarks")
 
@@ -88,6 +86,21 @@ _CTOR_TAILS = ("zeros", "ones", "full", "empty")
 _EXPAND_TAILS = ("expand", "broadcast_to")
 _DISPATCH_FN_RE = re.compile(
     r"decode|prefill|chunk|dispatch|serve|insert|step")
+
+# modules whose state initialisers build the serve engine's state trees
+# (SWAN104's scope; the encoder-decoder's state is the lockstep session's
+# only, as in the reference)
+SPEC_STATE_MODULES = (
+    "core/hybrid_cache.py", "core/paged_cache.py", "models/attention.py",
+    "models/mamba.py", "models/rwkv.py", "models/rwkv_model.py",
+    "models/transformer.py", "models/jamba.py",
+)
+_STATE_INIT_RE = re.compile(r"^(packed_side|init_\w*(cache|caches|state|pool))$")
+# tensor constructors whose dict keys SWAN104 reads as leaves (a leading
+# underscore names a module's own wrapper, e.g. hybrid_cache._zeros)
+_ARRAY_CTOR_TAILS = ("zeros", "ones", "full", "empty", "zeros_like",
+                     "empty_like", "full_like", "stack", "cat", "tensor",
+                     "as_tensor", "arange")
 
 _METRIC_NAME_RE = re.compile(r"(metric|counter|gauge|histogram)s?(_|$)",
                              re.IGNORECASE)
@@ -510,6 +523,79 @@ def _rule_bucketing(tree: ast.Module, rel: str, lines) -> List[Finding]:
 
 
 # ---------------------------------------------------------------------------
+# SWAN104 — spec completeness (cross-module; see lint_paths)
+# ---------------------------------------------------------------------------
+
+def extract_known_leaf_names(tree: ast.Module) -> Optional[Set[str]]:
+    """Static read of ``KNOWN_LEAF_NAMES = (...)`` from serve_specs."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign):
+            for tgt in node.targets:
+                if isinstance(tgt, ast.Name) \
+                        and tgt.id == "KNOWN_LEAF_NAMES" \
+                        and isinstance(node.value, (ast.Tuple, ast.List)):
+                    return {e.value for e in node.value.elts
+                            if isinstance(e, ast.Constant)
+                            and isinstance(e.value, str)}
+    return None
+
+
+def _is_array_ctor(value: ast.AST) -> bool:
+    if not isinstance(value, ast.Call):
+        return False
+    d = _dotted(value.func) or ""
+    tail = d.rsplit(".", 1)[-1]
+    return ("." in d or tail.startswith("_")) \
+        and tail.lstrip("_") in _ARRAY_CTOR_TAILS
+
+
+def extract_state_leaves(tree: ast.Module) -> List[Tuple[str, int]]:
+    """(leaf key, line) pairs for tensor-valued dict keys built by the
+    state initialisers (``_STATE_INIT_RE``).  Dict values that are
+    themselves dicts or other calls are containers, not leaves."""
+    out: List[Tuple[str, int]] = []
+    for f in _function_index(tree):
+        if not _STATE_INIT_RE.match(f.name):
+            continue
+        for node in ast.walk(f.node):
+            if isinstance(node, ast.Dict):
+                for key, value in zip(node.keys, node.values):
+                    if isinstance(key, ast.Constant) \
+                            and isinstance(key.value, str) \
+                            and _is_array_ctor(value):
+                        out.append((key.value, key.lineno))
+            elif (isinstance(node, ast.Assign)
+                  and len(node.targets) == 1
+                  and isinstance(node.targets[0], ast.Subscript)
+                  and isinstance(node.targets[0].slice, ast.Constant)
+                  and isinstance(node.targets[0].slice.value, str)
+                  and _is_array_ctor(node.value)):
+                # d["idx"] = torch.zeros(...): the conditional-leaf idiom
+                out.append((node.targets[0].slice.value,
+                            node.targets[0].lineno))
+    return out
+
+
+def spec_completeness_findings(known: Set[str],
+                               leaves_by_file: Dict[str, List[Tuple[str,
+                                                                    int]]],
+                               lines_by_file: Dict[str, Sequence[str]]
+                               ) -> List[Finding]:
+    out: List[Finding] = []
+    for rel, leaves in sorted(leaves_by_file.items()):
+        for name, line in leaves:
+            if name not in known:
+                out.append(Finding(
+                    "SWAN104", rel, line, 0,
+                    f"serve-state leaf {name!r} has no rule in "
+                    "repro_torch.sharding.serve_specs (KNOWN_LEAF_NAMES) — "
+                    "over a data mesh it would ship replicated and every "
+                    "shard would write the full array",
+                    snippet=_snippet(lines_by_file.get(rel, []), line)))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # SWAN105 — obs hygiene
 # ---------------------------------------------------------------------------
 
@@ -576,9 +662,14 @@ def lint_source(text: str, rel: str) -> List[Finding]:
 
 
 def lint_paths(root: str, rel_paths: Iterable[str]) -> List[Finding]:
-    """Lint a file set (paths relative to ``root``).  SWAN104, the one
-    cross-module rule, is skipped (``SKIPPED_RULES``)."""
+    """Lint a file set (paths relative to ``root``), the cross-module
+    spec-completeness rule (SWAN104) included: it runs when the set holds
+    the port's ``sharding/serve_specs.py``."""
     findings: List[Finding] = []
+    known: Optional[Set[str]] = None
+    leaves_by_file: Dict[str, List[Tuple[str, int]]] = {}
+    lines_by_file: Dict[str, Sequence[str]] = {}
+    sups: Dict[str, Dict[int, Tuple[Set[str], str]]] = {}
     for rel in sorted(rel_paths):
         try:
             with open(os.path.join(root, rel), "r", encoding="utf-8") as fh:
@@ -586,4 +677,23 @@ def lint_paths(root: str, rel_paths: Iterable[str]) -> List[Finding]:
         except OSError:
             continue
         findings.extend(lint_source(text, rel))
+        rel_n = _norm(rel)
+        try:
+            tree = ast.parse(text)
+        except SyntaxError:
+            continue
+        sups[rel], _ = suppression_map(text, tree, rel)
+        if rel_n.endswith("sharding/serve_specs.py"):
+            known = extract_known_leaf_names(tree)
+        if rel_n.endswith(SPEC_STATE_MODULES):
+            leaves = extract_state_leaves(tree)
+            if leaves:
+                leaves_by_file[rel] = leaves
+                lines_by_file[rel] = text.splitlines()
+    if known is not None and leaves_by_file:
+        extra = spec_completeness_findings(known, leaves_by_file,
+                                           lines_by_file)
+        for f in extra:
+            apply_suppressions([f], sups.get(f.path, {}))
+        findings.extend(extra)
     return findings

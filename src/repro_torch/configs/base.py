@@ -51,9 +51,8 @@ class SwanConfig:
 @dataclass(frozen=True)
 class MoEConfig:
     """Mixture-of-experts FFN: routed experts (top-k of them per token,
-    with a token capacity per expert) and always-on shared experts.  The
-    reference's ``shard_experts`` (expert parallelism over a mesh axis) is
-    left out: the port has no sharding yet."""
+    with a token capacity per expert) and always-on shared experts;
+    ``shard_experts`` chooses the experts' sharding (``sharding.specs``)."""
     n_routed: int                 # number of routed experts
     n_shared: int                 # number of always-on shared experts
     top_k: int                    # experts activated per token
@@ -63,6 +62,7 @@ class MoEConfig:
     router_z_weight: float = 1e-3    # router logit z-loss weight
     moe_every: int = 1            # MoE FFN on layers where (idx % moe_every == moe_offset)
     moe_offset: int = 0
+    shard_experts: bool = True    # EP: shard expert dim over the 'model' axis
 
 
 @dataclass(frozen=True)
@@ -98,14 +98,13 @@ class ModelConfig:
     family (deepseek-moe-16b, qwen2-moe-a2.7b), its ``vlm`` family
     (internvl2-1b), its ``encdec`` family (whisper-small), its ``hybrid``
     family (jamba-1.5-large-398b) and its ``ssm`` family (rwkv6-3b).  The
-    reference's sharding fields (``tp_style`` among them) come with the
-    sharding that sets them.
+    sharding fields (``tp_style``, ``fsdp_data``, ``seq_shard``) are the
+    reference's, read by ``sharding.specs``.
 
-    The training fields are the reference's, with two left out: its
-    ``scan_layers`` chooses how XLA compiles the layer stack, and the port
-    always loops over the layers in Python; its ``opt_state_dtype`` repeats
-    ``OptimizerConfig.state_dtype``, the one field the port reads for the
-    AdamW moments' dtype."""
+    The training fields are the reference's but ``scan_layers``, which
+    chooses how XLA compiles the layer stack (the port always loops over
+    the layers in Python); ``opt_state_dtype`` is the AdamW moments' dtype
+    the training launcher puts into ``OptimizerConfig.state_dtype``."""
     name: str
     family: str                   # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
@@ -137,10 +136,15 @@ class ModelConfig:
     n_prefix_tokens: int = 0      # patch-embedding prefix length (internvl stub)
     dtype: str = "bfloat16"       # activation / cache dtype
     param_dtype: str = "bfloat16"
+    # --- sharding profile -------------------------------------------------
+    tp_style: str = "heads"       # heads | fsdp_model (tiny archs: model axis used for param storage)
+    fsdp_data: bool = False       # additionally shard params/opt over 'data' (405B-class)
+    seq_shard: bool = False       # sequence-parallel activations on 'model' axis
     # --- training -------------------------------------------------------
     remat: bool = True            # recompute each layer in the backward
     remat_policy: str = "full"    # full (save nothing) | dots (save matmul outputs)
     grad_accum: int = 1           # microbatches per optimizer step
+    opt_state_dtype: str = "float32"  # AdamW moments (bf16 for >=100B configs)
 
     @property
     def q_group(self) -> int:

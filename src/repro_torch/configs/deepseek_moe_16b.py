@@ -2,9 +2,6 @@
 
 28L d_model=2048 16H (MHA kv=16) d_ff=1408 vocab=102400,
 MoE: 2 shared + 64 routed experts, top-6.
-
-The reference's sharding fields (``shard_experts=True``,
-``tp_style="heads"``) are left out: the port has no sharding yet.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 

@@ -3,12 +3,9 @@
 72L d_model=8192 64H (GQA kv=8) d_ff=24576 vocab=65536, MoE 16e top-2,
 Mamba:attention 1:7 interleave (one attention layer per 8), MoE every
 second layer (Jamba's e=2 period).  SWAN applies to the 9 attention layers
-(the only sequence-proportional state).
-
-The reference's sharding fields (``shard_experts=True``,
-``tp_style="heads"``, ``fsdp_data``, ``seq_shard``) and its
-``opt_state_dtype="bfloat16"`` are left out: the port has no sharding yet,
-and its AdamW moments follow ``OptimizerConfig.state_dtype``.
+(the only sequence-proportional state).  The full config shards its
+parameters over 'data' too and its activations' sequence over 'model',
+and keeps its AdamW moments in bfloat16.
 """
 from repro_torch.configs.base import MambaConfig, ModelConfig, MoEConfig
 
@@ -22,7 +19,9 @@ def config() -> ModelConfig:
         moe=MoEConfig(n_routed=16, n_shared=0, top_k=2, d_expert=24576,
                       moe_every=2, moe_offset=1),
         mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
-        attn_period=8, attn_offset=4, grad_accum=16,
+        attn_period=8, attn_offset=4,
+        fsdp_data=True, seq_shard=True,
+        opt_state_dtype="bfloat16", grad_accum=16,
     )
 
 

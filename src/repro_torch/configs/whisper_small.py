@@ -18,6 +18,7 @@ def config() -> ModelConfig:
         norm="layernorm", act="gelu", pos="learned",
         qkv_bias=True, attn_out_bias=True, mlp_bias=True,
         is_encoder_decoder=True, n_encoder_layers=12, encoder_seq=1500,
+        tp_style="fsdp_model",
     )
 
 
@@ -29,4 +30,5 @@ def smoke_config() -> ModelConfig:
         norm="layernorm", act="gelu", pos="learned",
         qkv_bias=True, attn_out_bias=True, mlp_bias=True,
         is_encoder_decoder=True, n_encoder_layers=2, encoder_seq=32,
+        tp_style="fsdp_model",
     )

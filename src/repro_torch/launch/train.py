@@ -10,9 +10,11 @@ or qwen2-moe-a2.7b (whose loss adds the experts' load-balance and router
 z-losses) or internvl2-1b (trained, as by the reference's trainer, on
 token batches without patch embeddings), jamba-1.5-large-398b (Mamba,
 attention and MoE layers; its loss adds the experts' aux losses) or
-rwkv6-3b; without ``--smoke`` each is its full configuration, which for
-all but olmo-1b and internvl2-1b needs more memory than one card holds
-with f32 AdamW moments.  whisper-small is
+rwkv6-3b, or llama3-405b; without ``--smoke`` each is its full
+configuration, which for all but olmo-1b and internvl2-1b needs more
+memory than one card holds.  The AdamW moments take the config's
+``opt_state_dtype`` (bfloat16 for jamba-1.5-large-398b and llama3-405b,
+float32 elsewhere), as in the reference's launcher.  whisper-small is
 refused: the token stream carries no encoder frames (the reference's
 trainer fails on it with ``KeyError: 'frames'``).
 """
@@ -57,7 +59,8 @@ def main(argv=None):
     tc = TrainConfig(
         model=cfg, seq_len=args.seq, global_batch=args.batch,
         steps=args.steps,
-        optimizer=OptimizerConfig(lr=args.lr, decay_steps=args.steps),
+        optimizer=OptimizerConfig(lr=args.lr, decay_steps=args.steps,
+                                  state_dtype=cfg.opt_state_dtype),
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
         log_every=max(args.steps // 20, 1),
         grad_compression=args.grad_compression)

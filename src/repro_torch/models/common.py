@@ -25,7 +25,17 @@ def torch_dtype(name: str) -> torch.dtype:
 # Initialisers
 # ---------------------------------------------------------------------------
 
-def dense_init_(out: torch.Tensor, gen: torch.Generator,
+def param_generator(device: torch.device, seed: int
+                    ) -> Optional[torch.Generator]:
+    """The initialisers' seeded generator on ``device``; None on the
+    ``meta`` device, which has none: there the initialisers only give each
+    leaf its shape and dtype (a full config's tree costs no memory)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dense_init_(out: torch.Tensor, gen: Optional[torch.Generator],
                 scale: Optional[float] = None) -> torch.Tensor:
     """Fill ``out [..., d_in, d_out]`` in place with truncated-normal
     fan-in weights (±3σ, as ``jax.random.truncated_normal``), drawn in f32."""
@@ -35,7 +45,8 @@ def dense_init_(out: torch.Tensor, gen: torch.Generator,
     return out.copy_(w.mul_(std))
 
 
-def embed_init_(out: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def embed_init_(out: torch.Tensor, gen: Optional[torch.Generator]
+                ) -> torch.Tensor:
     w = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     return out.copy_(w.normal_(0.0, 1.0, generator=gen).mul_(0.02))
 

@@ -31,7 +31,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, embed_init_, init_norm,
-                                       torch_dtype)
+                                       param_generator, torch_dtype)
 from repro_torch.models.mlp import mlp_forward
 
 Params = Dict[str, Any]
@@ -47,7 +47,7 @@ def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     the encoder and decoder stacks, both positional tables, zero biases
     where the config's flags put them."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = param_generator(dev, seed)
     Le, L, d = cfg.n_encoder_layers, cfg.n_layers, cfg.d_model
     pdt = torch_dtype(cfg.param_dtype)
 

@@ -33,7 +33,7 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, embed_init_, init_norm,
-                                       torch_dtype)
+                                       param_generator, torch_dtype)
 from repro_torch.models.mlp import mlp_forward
 
 Params = Dict[str, Any]
@@ -52,7 +52,7 @@ def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     each group position holds "ln1", "ln2", its mixer ("attn" or "mamba")
     and its FFN ("experts" or "mlp"), stacked over the groups."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = param_generator(dev, seed)
     G, P, d, V = n_groups(cfg), cfg.attn_period, cfg.d_model, cfg.vocab_size
     pdt = torch_dtype(cfg.param_dtype)
     groups: Params = {}

@@ -20,7 +20,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import rwkv
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, embed_init_, init_norm,
-                                       torch_dtype)
+                                       param_generator, torch_dtype)
 
 Params = Dict[str, Any]
 
@@ -29,7 +29,7 @@ def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device`` (the
     card by default), with the reference's init distributions and tree."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = param_generator(dev, seed)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     pdt = torch_dtype(cfg.param_dtype)
     layers = {"ln1": init_norm(cfg, (L,), dev),

@@ -35,7 +35,8 @@ from repro_torch.kernels.swan_decode.ops import (
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
-                                       init_norm, torch_dtype)
+                                       init_norm, param_generator,
+                                       torch_dtype)
 from repro_torch.models.mlp import mlp_forward
 
 Params = Dict[str, Any]
@@ -110,7 +111,7 @@ def init_lm_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     if len(kinds) > 1:
         raise ValueError(f"{cfg.name}: the stacked layer layout needs one "
                          f"FFN kind on every layer, got {sorted(kinds)}")
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = param_generator(dev, seed)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     pdt = torch_dtype(cfg.param_dtype)
 

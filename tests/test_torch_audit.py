@@ -25,7 +25,8 @@ from repro_torch.analysis.lint.audit import (AuditCheck,  # noqa: E402
                                              logical_view_check,
                                              parse_graph_dot, run_audit,
                                              transfer_check)
-from repro_torch.configs import SwanConfig, get_smoke_config  # noqa: E402
+from repro_torch.configs import (SwanConfig, get_config,  # noqa: E402
+                                 get_smoke_config)
 
 # a node of each kind, in CUDA's terse DOT (flags 0)
 TERSE_DOT = """digraph dot {
@@ -148,6 +149,80 @@ def test_capture_and_launch_checks():
     assert launch_check("slab", dict(ok, swan_decode_paged=1), disp, "slab",
                         32).status == "fail"
     assert launch_check("paged", ok, disp, "paged", 32).status == "fail"
+
+
+def _dot(symbols):
+    """A terse DOT of kernel nodes, one per symbol."""
+    nodes = "".join(f'"graph_1_node_{i}"[style="bold" shape="octagon" '
+                    f'label="{i}\n_Z{len(s)}{s}v4Args\n"];\n\n'
+                    for i, s in enumerate(symbols))
+    return ("digraph dot {\nsubgraph cluster_1 {\nlabel=\"graph_1\" "
+            f"graph[style=\"dashed\"];\n{nodes}}}\n}}\n")
+
+
+class _FakeGraphs:
+    """One decode and one chunk graph: their DOT node census and the
+    wrapper launches tallied at capture."""
+
+    def __init__(self, n_decode, n_chunk, decode_tally=None):
+        self.dots = {
+            "decode": _dot(["swan_decode_kernel",
+                            "swan_decode_merge_kernel"] * n_decode),
+            "chunk": _dot(["swan_chunk_mma_kernel"] * n_chunk)}
+        self.tallies = {"decode": {"swan_decode": decode_tally or n_decode},
+                        "chunk": {"swan_chunk_stats": n_chunk}}
+
+    def keys(self, fam):
+        return [(fam, 0)]
+
+    def dot(self, fam, key):
+        return self.dots[fam]
+
+    def tally(self, fam, key):
+        return self.tallies[fam]
+
+
+class _FakeEngine:
+    paged = False
+
+    def __init__(self, cfg, graphs):
+        self.cfg, self._graphs = cfg, graphs
+
+
+def test_launch_and_graph_counts_at_two_decode_groups():
+    """At G = 16 (llama3-405b) the decode kernels launch twice per layer
+    (``swan_decode.g_plan``'s two groups of 8), the chunk kernels once:
+    the counters expect exactly that and still fail on a missing or an
+    extra launch."""
+    from repro_torch.analysis.lint.audit import audit_graphs, decode_groups
+    full = get_config("llama3-405b")
+    g16 = get_smoke_config("llama3-405b").replace(n_heads=32, n_kv_heads=2)
+    assert decode_groups(full) == decode_groups(g16) == 2
+    assert decode_groups(get_config("llama3-8b")) == 1
+    assert decode_groups(get_config("internvl2-1b")) == 1       # G = 7
+    disp = {"prefill": 0, "chunk": 3, "decode": 10}
+    ok = {"swan_decode": 2 * 2 * 10, "swan_chunk_stats": 2 * 3,
+          "swan_decode_paged": 0, "swan_chunk_stats_paged": 0,
+          "flash_attention": 0, "swan_prune": 0}
+    assert launch_check("g16", ok, disp, "slab", 2, groups=2).status == "pass"
+    for bad in (dict(ok, swan_decode=2 * 10), dict(ok, swan_decode=41),
+                dict(ok, swan_decode=39), dict(ok, swan_chunk_stats=12)):
+        assert launch_check("g16", bad, disp, "slab", 2,
+                            groups=2).status == "fail", bad
+    assert launch_check("g16", ok, disp, "slab", 2).status == "fail"
+    # the graph census: 2 layers x 2 groups of split + merge nodes
+    checks = audit_graphs(_FakeEngine(g16, _FakeGraphs(4, 2)), "g16", 2)
+    assert {c.check: c.status for c in checks}[
+        "graph-kernels/g16/decode"] == "pass"
+    assert all(c.status == "pass" for c in checks), checks
+    for graphs in (_FakeGraphs(2, 2), _FakeGraphs(5, 2),
+                   _FakeGraphs(4, 2, decode_tally=2), _FakeGraphs(4, 4)):
+        checks = audit_graphs(_FakeEngine(g16, graphs), "g16", 2)
+        assert any(c.status == "fail" for c in checks)
+    # G = 4: one group
+    g4 = get_smoke_config("llama3-405b")
+    assert all(c.status == "pass" for c in audit_graphs(
+        _FakeEngine(g4, _FakeGraphs(2, 2)), "g4", 2))
 
 
 def test_logical_view_check_trips_on_a_seeded_gather():

@@ -7,14 +7,17 @@ port's tree (``src/repro_torch/``, ``chip_smoke.py``,
 ``examples/torch_*.py``) lints clean, a seeded ``.item()`` on the engine's
 ``step()`` path is flagged (and fails the CLI), and the real fetch points
 are not."""
+import json
 import os
 import shutil
 import textwrap
 
 import pytest
 
+from repro.analysis.lint.__main__ import main as ref_lint_main
+from repro.analysis.lint.rules import lint_paths as ref_lint_paths
 from repro.analysis.lint.rules import lint_source as ref_lint_source
-from repro_torch.analysis.lint import (DEFAULT_SCAN, RULES, SKIPPED_RULES,
+from repro_torch.analysis.lint import (DEFAULT_BASELINE, DEFAULT_SCAN, RULES,
                                        collect_files, make_report,
                                        new_findings, run_lint)
 from repro_torch.analysis.lint.__main__ import main as lint_main
@@ -240,7 +243,8 @@ def test_cli_fails_on_a_seeded_host_sync(tmp_path, capsys):
         "        self.step_count += 1\n        self.next_tok.sum().item()\n"
         "        self._sample_gauges()", 1))
     out = tmp_path / "report.json"
-    assert lint_main(["--root", str(root), "--json", str(out)]) == 1
+    assert lint_main(["--root", str(root), "--check", "--json",
+                      str(out)]) == 1
     assert "SWAN102" in capsys.readouterr().err
     assert out.exists()
 
@@ -301,20 +305,110 @@ def test_bucketing_pow2_and_scope_negatives():
 
 
 # ---------------------------------------------------------------------------
-# SWAN104 — waits for the port's sharding
+# SWAN104 — spec completeness (the port's sharding/serve_specs.py)
 # ---------------------------------------------------------------------------
 
+SPECS = "src/repro_torch/sharding/serve_specs.py"
+CACHE = "src/repro_torch/core/hybrid_cache.py"
+
+
+def _spec_fixture(tmp_path, cache_src, ref=False):
+    """SWAN104 over the real serve_specs.py (KNOWN_LEAF_NAMES) and a
+    seeded cache module, by the port's rule or (``ref``) the
+    reference's on the same snippet."""
+    pkg, lint = ("repro", ref_lint_paths) if ref else ("repro_torch",
+                                                        lint_paths)
+    for rel in (f"src/{pkg}/sharding/serve_specs.py",
+                f"src/{pkg}/core/hybrid_cache.py"):
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(os.path.join(REPO, "src", pkg, "sharding", "serve_specs.py"),
+                tmp_path / f"src/{pkg}/sharding/serve_specs.py")
+    (tmp_path / f"src/{pkg}/core/hybrid_cache.py").write_text(
+        textwrap.dedent(cache_src))
+    return lint(str(tmp_path), [f"src/{pkg}/sharding/serve_specs.py",
+                                f"src/{pkg}/core/hybrid_cache.py"])
+
+
+ROGUE_SRC = """
+    import {m}
+
+    def init_cache(L):
+        d = {{"k": {m}.zeros((L,)), "rogue": {m}.zeros((L,))}}
+        d["late"] = {m}.zeros((L,))
+        return d
+"""
+
+
 def test_spec_completeness_keeps_its_id_and_reports_skip(tmp_path):
-    assert "SWAN104" in RULES and "skip" in SKIPPED_RULES["SWAN104"]
-    (tmp_path / "src/repro_torch/core").mkdir(parents=True)
-    (tmp_path / "src/repro_torch/core/hybrid_cache.py").write_text(
-        "import torch\n\ndef init_cache(L):\n"
-        "    return {'rogue': torch.zeros((L,))}\n")
-    fs = lint_paths(str(tmp_path), ["src/repro_torch/core/hybrid_cache.py"])
-    assert not [f for f in fs if f.rule == "SWAN104"]
+    """SWAN104 keeps its ID and now runs (it reported "skip" while the
+    port had no serve specs, so the report lists no skipped rules any
+    more), and a seeded unknown leaf is reported where the reference's
+    rule reports it."""
+    assert "SWAN104" in RULES
+    fs = _spec_fixture(tmp_path, ROGUE_SRC.format(m="torch"))
+    hits = _active(fs, "SWAN104")
+    assert {f.message.split("'")[1] for f in hits} == {"rogue", "late"}
+    ref = _active(_spec_fixture(tmp_path, ROGUE_SRC.format(m="jnp"),
+                                ref=True), "SWAN104")
+    assert {(f.line, f.message.split("'")[1]) for f in hits} == \
+        {(f.line, f.message.split("'")[1]) for f in ref}
+    assert "skipped_rules" not in make_report(fs)
     # a suppression naming it is well formed
     assert not _lint("x = 1  # swanlint: disable=SWAN104 -- host only\n")
-    assert make_report(fs)["skipped_rules"] == SKIPPED_RULES
+
+
+def test_spec_completeness_reads_the_port_idioms(tmp_path):
+    """The port's initialisers: ``packed_side``, ``init_*caches`` and a
+    module's own ``_zeros`` wrapper build leaves; a known leaf, a nested
+    dict and a non-constructor call do not report."""
+    fs = _spec_fixture(tmp_path, """
+        import torch
+
+        def packed_side(rows):
+            d = {"vals": _zeros(rows), "bogus": _zeros(rows)}
+            return d
+
+        def init_paged_caches(L):
+            return {"pool": {"k": side(L)}, "buf_pos": torch.full((L,), -1),
+                    "extra": torch.empty((L,))}
+
+        def not_an_init(L):
+            return {"hidden": torch.zeros((L,))}
+    """)
+    assert {f.message.split("'")[1] for f in _active(fs, "SWAN104")} == \
+        {"bogus", "extra"}
+
+
+def test_spec_completeness_suppressible(tmp_path):
+    fs = _spec_fixture(tmp_path, """
+        import torch
+
+        def init_cache(L):
+            return {
+                # swanlint: disable=SWAN104 -- host-only scratch, never
+                # crosses a mesh
+                "rogue": torch.zeros((L,)),
+            }
+    """)
+    hits = [f for f in fs if f.rule == "SWAN104"]
+    assert hits and all(f.suppressed for f in hits)
+
+
+def test_port_state_leaves_are_all_known():
+    """Every leaf the port's initialisers build is in KNOWN_LEAF_NAMES
+    (and the rule found them: the set is not empty)."""
+    import ast
+    from repro_torch.analysis.lint.rules import (SPEC_STATE_MODULES,
+                                                 extract_known_leaf_names,
+                                                 extract_state_leaves)
+    with open(os.path.join(REPO, SPECS), encoding="utf-8") as fh:
+        known = extract_known_leaf_names(ast.parse(fh.read()))
+    found = set()
+    for mod in SPEC_STATE_MODULES:
+        with open(os.path.join(REPO, "src/repro_torch", mod),
+                  encoding="utf-8") as fh:
+            found |= {n for n, _ in extract_state_leaves(ast.parse(fh.read()))}
+    assert found == set(known)
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +481,7 @@ def test_port_tree_lints_clean():
     findings = run_lint(REPO)
     assert not _active(findings), [f.to_json() for f in _active(findings)]
     assert new_findings(findings, None) == []
-    assert lint_main(["--root", REPO]) == 0
+    assert lint_main(["--root", REPO, "--check"]) == 0
 
 
 def test_report_counts_and_fingerprint_stability():
@@ -405,3 +499,116 @@ def test_report_counts_and_fingerprint_stability():
     assert f1[0].line != f2[0].line
     # a baseline holding the finding accepts it
     assert new_findings(f2, {"findings": [f1[0].to_json()]}) == []
+
+
+# ---------------------------------------------------------------------------
+# The CLI's flags against the reference CLI's
+# ---------------------------------------------------------------------------
+
+SEEDED = "_step_counters = {}\n"        # SWAN105 in either package
+
+
+def _seeded_roots(tmp_path):
+    """Two repo roots, each with one seeded SWAN105 finding: one in the
+    reference's tree, one in the port's."""
+    roots = {}
+    for pkg in ("repro", "repro_torch"):
+        root = tmp_path / pkg
+        mod = root / "src" / pkg / "runtime" / "seeded.py"
+        mod.parent.mkdir(parents=True)
+        mod.write_text(SEEDED)
+        roots[pkg] = str(root)
+    return roots
+
+
+def _stub_audit(monkeypatch, status):
+    """Both packages' ``run_audit`` replaced by one check of ``status``
+    (the reference's builds the JAX engine matrix: minutes on the CPU)."""
+    import repro.analysis.lint.audit as ref_audit
+    import repro_torch.analysis.lint.audit as port_audit
+    for mod in (ref_audit, port_audit):
+        monkeypatch.setattr(mod, "run_audit",
+                            lambda *a, _m=mod, **k: [
+                                _m.AuditCheck("stub/check", status, "")])
+
+
+FLAG_SETS = {"none": [], "check": ["--check"], "report": ["--report"],
+             "check-report": ["--check", "--report"],
+             "write-baseline": ["--write-baseline"],
+             "audit-smoke": ["--audit-smoke"],
+             "check-audit-smoke": ["--check", "--audit-smoke"]}
+
+
+@pytest.mark.parametrize("flags", list(FLAG_SETS))
+def test_cli_exit_codes_match_the_reference(flags, tmp_path, monkeypatch):
+    """On one seeded finding each flag set exits as the reference's CLI
+    does: 1 only under ``--check``; a report and a baseline are written
+    where asked."""
+    _stub_audit(monkeypatch, "pass")
+    roots = _seeded_roots(tmp_path)
+    rcs = {}
+    for pkg, main in (("repro", ref_lint_main), ("repro_torch", lint_main)):
+        argv = ["--root", roots[pkg]]
+        for f in FLAG_SETS[flags]:
+            argv += [f, os.path.join(roots[pkg], "out", "report.json")] \
+                if f == "--report" else [f]
+        rcs[pkg] = main(argv)
+        if "--report" in argv:
+            with open(argv[argv.index("--report") + 1]) as fh:
+                rep = json.load(fh)
+            assert rep["counts"]["active"] == 1
+            assert [f["rule"] for f in rep["findings"]] == ["SWAN105"]
+    assert rcs["repro_torch"] == rcs["repro"] == \
+        (1 if "--check" in FLAG_SETS[flags] else 0)
+
+
+def test_cli_write_baseline_accepts_the_finding(tmp_path, monkeypatch,
+                                                capsys):
+    """``--write-baseline`` then ``--check`` passes in both CLIs; the
+    port's baseline is its own file and the reference's is untouched."""
+    roots = _seeded_roots(tmp_path)
+    ref_base = os.path.join(roots["repro_torch"], "bench_out",
+                            "LINT_BASELINE.json")
+    os.makedirs(os.path.dirname(ref_base))
+    with open(ref_base, "w") as fh:
+        fh.write("{}\n")
+    for pkg, main in (("repro", ref_lint_main), ("repro_torch", lint_main)):
+        assert main(["--root", roots[pkg], "--write-baseline"]) == 0
+        assert main(["--root", roots[pkg], "--check"]) == 0
+    port_base = os.path.join(roots["repro_torch"], DEFAULT_BASELINE)
+    assert DEFAULT_BASELINE != os.path.join("bench_out", "LINT_BASELINE.json")
+    with open(port_base) as fh:
+        assert [f["rule"] for f in json.load(fh)["findings"]] == ["SWAN105"]
+    with open(ref_base) as fh:
+        assert fh.read() == "{}\n"
+    assert "baseline written: " + port_base in capsys.readouterr().out
+    # a new finding on top of the baseline fails the gate again
+    mod = os.path.join(roots["repro_torch"], "src", "repro_torch", "runtime",
+                       "seeded.py")
+    with open(mod, "a") as fh:
+        fh.write("_more_gauges = {}\n")
+    assert lint_main(["--root", roots["repro_torch"], "--check"]) == 1
+
+
+@pytest.mark.parametrize("check", [False, True])
+def test_cli_audit_failure_gates_only_under_check(check, tmp_path,
+                                                  monkeypatch):
+    """A failing audit check on a clean tree: exit 1 under ``--check`` and
+    0 without it, in both CLIs."""
+    _stub_audit(monkeypatch, "fail")
+    argv = ["--audit-smoke"] + (["--check"] if check else [])
+    for main in (ref_lint_main, lint_main):
+        assert main(["--root", str(tmp_path)] + argv) == int(check)
+
+
+def test_cli_audit_smoke_runs_the_serve_auditor_on_the_cpu(tmp_path,
+                                                            capsys):
+    """The real ``--audit-smoke`` of the port on its clean tree: the CPU
+    audit passes (its graph and kernel checks skip) and the gate holds."""
+    out = tmp_path / "report.json"
+    assert lint_main(["--root", REPO, "--check", "--audit-smoke",
+                      "--report", str(out)]) == 0
+    rep = json.loads(out.read_text())
+    assert rep["counts"]["audit_failures"] == 0
+    assert {c["status"] for c in rep["audit"]} == {"pass", "skip"}
+    assert "audit failure(s)" in capsys.readouterr().out

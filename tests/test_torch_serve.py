@@ -217,6 +217,18 @@ def test_port_runs_without_jax_or_the_reference(tmp_path):
         "assert all(ck.status == 'pass' for ck in repro_torch.analysis.lint"
         ".audit.kernel_precheck_checks(cfg, SwanConfig(k_max=8, buffer=4), 32,"
         " page_size=8, chunk_q=16))\n"
+        "import repro_torch.sharding.specs, repro_torch.sharding.serve_specs\n"
+        "import repro_torch.benchmarks.run\n"
+        "from repro_torch.configs import get_config\n"
+        "lcfg = get_config('llama3-405b')\n"
+        "lp = get_model(lcfg).init_params(lcfg, 0, 'meta')\n"
+        "class Mesh:\n"
+        "    shape = {'data': 16, 'model': 16}\n"
+        "    axis_names = ('data', 'model')\n"
+        "assert repro_torch.sharding.specs.params_pspecs(lp, lcfg, Mesh())"
+        "['embed'] == ('model', 'data')\n"
+        "assert not repro_torch.sharding.serve_specs.unspecced_serve_leaves("
+        "e.state)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] in ('repro', 'benchmarks')]\n"
         "assert not bad, bad\n"

@@ -1,6 +1,7 @@
 """The port's training launcher and the serve launcher's ``--ckpt-dir`` on
-the CPU, and a subprocess check that training and a quality bench load
-nothing of JAX or of the reference package."""
+the CPU, the training launcher's TrainConfig against the reference
+launcher's for every arch, and a subprocess check that training and a
+quality bench load nothing of JAX or of the reference package."""
 import os
 import subprocess
 import sys
@@ -10,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS  # noqa: E402
+from repro.launch import train as ref_train_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 
@@ -66,3 +69,56 @@ def test_train_and_quality_bench_import_no_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "clean"
     assert (tmp_path / "out" / "BENCH_adaptive_k_torch.json").exists()
+
+
+class _Built(Exception):
+    """Raised by the stub trainer once the launcher has built its
+    TrainConfig."""
+
+    def __init__(self, tc):
+        super().__init__("built")
+        self.tc = tc
+
+
+def _stub_trainer(tc, *args, **kwargs):
+    raise _Built(tc)
+
+
+def _train_config(module, argv, monkeypatch):
+    """The TrainConfig ``module``'s launcher builds for ``argv`` (its
+    trainer is stubbed: nothing trains)."""
+    monkeypatch.setattr(module, "Trainer", _stub_trainer)
+    try:
+        if module is ref_train_launcher:
+            monkeypatch.setattr(sys, "argv", ["train"] + argv)
+            module.main()
+        else:
+            module.main(argv)
+    except _Built as built:
+        return built.tc
+    raise AssertionError("the launcher built no trainer")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", J_ARCH_IDS)
+def test_launchers_agree_on_the_moments_dtype(arch, smoke, monkeypatch):
+    """Both training launchers give the optimizer the config's
+    ``opt_state_dtype`` (bfloat16 for the full jamba-1.5-large-398b and
+    for llama3-405b, whose smoke config keeps it too); the port refuses the
+    encoder-decoder, whose stream has no frames."""
+    argv = ["--arch", arch, "--steps", "5", "--lr", "1e-3"] + (
+        ["--smoke"] if smoke else [])
+    want = _train_config(ref_train_launcher, argv, monkeypatch)
+    if want.model.is_encoder_decoder:
+        with pytest.raises(SystemExit, match="encoder frames"):
+            train_launcher.main(argv + ["--device", "cpu"])
+        return
+    got = _train_config(train_launcher, argv + ["--device", "cpu"],
+                        monkeypatch)
+    assert got.optimizer.state_dtype == want.optimizer.state_dtype \
+        == want.model.opt_state_dtype == got.model.opt_state_dtype
+    assert (got.optimizer.lr, got.optimizer.decay_steps) == \
+        (want.optimizer.lr, want.optimizer.decay_steps)
+    if arch == "llama3-405b" or (arch == "jamba-1.5-large-398b"
+                                 and not smoke):
+        assert got.optimizer.state_dtype == "bfloat16"
