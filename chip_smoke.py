@@ -82,10 +82,33 @@ Phases, each of which must pass (any failure exits non-zero):
               then serves the trace with metrics off, on, on, off: the
               same tokens and dispatches, and graphed step ms with
               metrics on and off.
+   sharded  — the engine over ``make_serve_mesh(2, devices=["cuda:0"] *
+              2)``: two data shards of 2 slots laid over the one card, the
+              engine trace at the engine phase's sizes.  64-token pages
+              graphed after ``warmup(max_prompt_len=2048)`` (census at or
+              above ``expected``; a mixed trace then captures nothing),
+              the slab graphed at first use, the pages again eagerly:
+              paged == slab tokens, graphed == eager (tokens, dispatches,
+              ``cache_report()``), at most one chunk and one decode
+              dispatch per step, B2/B4 (pages) and B1/B3 (slab) once per
+              layer per dispatch through the replays (not once per
+              shard), per-shard reports summing to the totals and equal
+              to the per-shard gauges, the pool consistent and drained;
+              dp = 2's tokens against dp = 1's
+              (``repro_torch.benchmarks.parity``: where they part, the two
+              runs' logits of the two tokens they chose agree within
+              5e-2 and dp = 1's top-two margin is below it; every shared
+              token's whole logits row within ``ROW_TOL``), beside a dp =
+              1 run at dp = 2's chunk lane counts that dp = 2 must equal
+              bit for bit, and a control with shard 1's lane offset
+              dropped that must fail the whole-row limit; the serve
+              auditor's ``paged-dp2`` row over the warmed engine (in the
+              audit phase when that runs).  Step times against dp = 1's.
    audit    — the serve auditor (``repro_torch.analysis.lint.audit.
               run_audit``) over the graphs phase's two warmed engines
               (their graph descriptions kept; warmed here under ``--only
-              audit``) and two eager engines whose SWAN reads take the
+              audit``) and the sharded phase's, and three eager engines
+              (slab, pages, pages over two shards) whose SWAN reads take the
               plain PyTorch path on the card: every decode graph holds one
               B1 (slab) or B2 (pages) split + merge node pair per layer and
               every chunk graph one B3 or B4 node per layer (CUDA's DOT
@@ -203,7 +226,9 @@ Phases, each of which must pass (any failure exits non-zero):
               layers (bf16 params, f32 AdamW moments, remat, 2
               microbatches, global batch 8 x 512) trained 12 steps
               straight and 6 + an async checkpoint + a fresh Trainer's
-              resume to 12: finite, falling losses, the resumed ones equal
+              resume to 12 (the step-6 save the only one written: the
+              runs' final saves are skipped): finite, falling losses, the
+              resumed ones equal
               to the straight run's (bit for bit or within 1e-3), ms/step,
               tokens/s, peak memory and MFU printed; then the quality
               benchmarks' tiny LM trained 900 steps on the card (f32, TF32
@@ -1455,14 +1480,14 @@ def engine_requests(cfg, k_max=K):
             for i, n in enumerate(ENGINE_LENS)]
 
 
-def make_engine(model, k_max=K, **kw):
+def make_engine(model, k_max=K, lanes=ENGINE_LANES, **kw):
     from repro_torch.configs import SwanConfig
     from repro_torch.runtime.serve_engine import ServeEngine
     cfg, params, projections = model
     return ServeEngine(cfg, params, swan=SwanConfig(k_max=k_max, buffer=BUF),
                        projections=projections, max_seq=S,
                        n_slots=ENGINE_SLOTS, prefill_chunk=ENGINE_CHUNK,
-                       prefill_slots=ENGINE_LANES, device="cuda", **kw)
+                       prefill_slots=lanes, device="cuda", **kw)
 
 
 def drive(kernels, eng, reqs, label):
@@ -1532,7 +1557,7 @@ def drive(kernels, eng, reqs, label):
               for t in c.tokens), f"[{label}] token ids out of range")
     return {"tokens": {u: c.tokens for u, c in comps.items()},
             "launches": launches, "dispatches": d, "report": rep,
-            "stats": stats}
+            "stats": stats, "per_step": kinds}
 
 
 def check_launches(run, layout, cfg, label):
@@ -1545,27 +1570,35 @@ def check_launches(run, layout, cfg, label):
     check(c.status == "pass", f"[{label}] {c.detail}")
 
 
-def engine_run(kernels, model, label, **kw):
+def engine_run(kernels, model, label, rows=None, **kw):
     """The trace on a fresh EAGER engine without metrics (the baseline of
-    the graphs phase)."""
+    the graphs phase); with ``rows``, every token's logits row kept there
+    (``record_logits``) and in the run as ``rows``."""
+    from repro_torch.benchmarks.parity import record_logits
     eng = make_engine(model, graphs=False, metrics=False, **kw)
+    if rows is not None:
+        record_logits(eng, rows)
     cfg = model[0]
     run = drive(kernels, eng, engine_requests(cfg), label)
+    run["rows"] = rows
     check_launches(run, label, cfg, label)
     return run, eng
 
 
-def engine_phase(kernels, model):
-    """The eager engine on the slab and the paged pool.  Returns the launch
-    counts by path and the two runs (the graphs phase's baseline)."""
+def engine_phase(kernels, model, keep_rows=False):
+    """The eager engine on the slab and the paged pool (the paged run
+    keeping its logits rows with ``keep_rows``, for the sharded phase).
+    Returns the launch counts by path and the two runs (the graphs
+    phase's baseline)."""
     import torch
     slab_run, slab = engine_run(kernels, model, "slab")
     slab_reserved = slab.cache_report()["reserved_bytes"]
     del slab
     gc.collect()
     torch.cuda.empty_cache()
-    paged_run, paged = engine_run(kernels, model, "paged", paged=True,
-                                  page_size=PS)
+    paged_run, paged = engine_run(kernels, model, "paged",
+                                  rows={} if keep_rows else None,
+                                  paged=True, page_size=PS)
     slab_tokens, paged_tokens = slab_run["tokens"], paged_run["tokens"]
     same = [u for u in slab_tokens if slab_tokens[u] == paged_tokens[u]]
     log(f"  paged tokens == slab tokens for {len(same)} of {len(slab_tokens)} "
@@ -1940,6 +1973,263 @@ def engine_graphs(kernels, model, eager, keep=False):
     return counts, on_off, warmed
 
 
+# ---------------------------------------------------------------------------
+# phase 7b: the sharded engine, two data shards laid over the one card
+# ---------------------------------------------------------------------------
+
+SHARDS = 2                      # data shards of the sharded phase's mesh
+CONTROL_REQS, CONTROL_NEW = 4, 4  # the control's trace: the first requests
+
+
+def against_one_shard(kernels, model, mesh, one, two, label):
+    """dp = 2's eager paged run ``two`` against dp = 1's ``one`` (both with
+    their logits rows) by ``repro_torch.benchmarks.parity.compare``: at a
+    parting token a near-tie within LOGIT_TOL, and every shared token's
+    whole logits row within ROW_TOL.  The chunk dispatch's lane count
+    differs between them (``[dp, P_local]``: never fewer than dp lanes),
+    and a bf16 product's rounding may follow its shape.  Two more runs
+    show what the limit separates: the lane witness, dp = 1 at ``SHARDS *
+    ENGINE_LANES`` prefill lanes with every chunk dispatch padded to at
+    least SHARDS lanes (dp = 2's schedule and lane counts on one shard),
+    which dp = 2 must equal bit for bit, read against dp = 1; and the
+    control, dp = 2 with shard 1's lane offset dropped on the first
+    CONTROL_REQS requests, which must fail the whole-row limit.  Returns
+    the number of requests that parted."""
+    import dataclasses
+    import torch
+    from repro_torch.benchmarks.parity import (ROW_TOL, compare, describe,
+                                               pad_chunk_lanes, record_logits)
+    from repro_torch.sharding import api
+    cfg = model[0]
+    main = compare(one["tokens"], one["rows"], two["tokens"], two["rows"],
+                   ROW_TOL)
+    log(f"  [{label}] dp = {SHARDS} vs dp = 1: {describe(main)}")
+
+    lanes = SHARDS * ENGINE_LANES
+    rows_w = {}
+    eng = make_engine(model, graphs=False, metrics=False, paged=True,
+                      page_size=PS, lanes=lanes)
+    pad_chunk_lanes(eng, SHARDS)
+    record_logits(eng, rows_w)
+    wit = drive(kernels, eng, engine_requests(cfg),
+                f"{label} witness: dp = 1, {lanes} lanes, >= {SHARDS} a "
+                "chunk dispatch")
+    del eng
+    self_w = compare(one["tokens"], one["rows"], wit["tokens"], rows_w,
+                     ROW_TOL)
+    to_two = compare(wit["tokens"], rows_w, two["tokens"], two["rows"], 0.0)
+    log(f"  [{label}] witness vs dp = 1: {describe(self_w)}")
+    log(f"  [{label}] dp = {SHARDS} vs witness ({two['stats']['steps']} vs "
+        f"{wit['stats']['steps']} steps): {describe(to_two)}")
+
+    real = api.ShardLayout.lanes
+
+    def dropped(layout, local):         # shard 1's lane offset dropped
+        local = local.long()
+        return torch.where(local < layout.n_local, local,
+                           torch.full_like(local, layout.n_slots))
+    rows_c = {}
+    api.ShardLayout.lanes = dropped
+    try:
+        eng = make_engine(model, graphs=False, metrics=False, mesh=mesh,
+                          paged=True, page_size=PS)
+        record_logits(eng, rows_c)
+        ctl = drive(kernels, eng, [
+            dataclasses.replace(r, max_new_tokens=CONTROL_NEW)
+            for r in engine_requests(cfg)[:CONTROL_REQS]],
+            f"{label} control: shard 1's lane offset dropped")
+    finally:
+        api.ShardLayout.lanes = real
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctrl = compare({u: one["tokens"][u][:CONTROL_NEW] for u in ctl["tokens"]},
+                   one["rows"], ctl["tokens"], rows_c, ROW_TOL)
+    log(f"  [{label}] control vs dp = 1: {describe(ctrl)}")
+    check(main["ok"], f"[{label}] dp = {SHARDS} vs dp = 1: {describe(main)}")
+    check(to_two["ok"] and to_two["rows_equal"] == to_two["rows"]
+          == sum(map(len, two["tokens"].values())),
+          f"[{label}] dp = {SHARDS} != the witness: {describe(to_two)}")
+    check(not ctrl["ok_rows"], f"[{label}] the control passed the whole-row "
+          f"limit: {describe(ctrl)}")
+    return len(main["partings"])
+
+
+def sharded_phase(kernels, model, eager=None, graphed=None, audit=True):
+    """The engine over ``make_serve_mesh(2, devices=["cuda:0"] * 2)``: two
+    data shards of 2 slots on the one card, the engine phase's requests,
+    slots, chunks and SwanConfig.  64-token pages graphed after
+    ``warmup(max_prompt_len=2048)`` (with ``async_fetch``), then a mixed
+    trace that must capture nothing; the slab graphed at first use; the
+    pages again eagerly.  Checks: paged == slab tokens; graphed == eager
+    (tokens, dispatches, cache report); at most one chunk and one decode
+    dispatch per step; B2/B4 (paged) and B1/B3 (slab) once per layer per
+    dispatch, counted through the replays, not once per shard; per-shard
+    reports summing to the totals and equal to the per-shard gauges; the
+    pool consistent and drained; dp = 2 against the dp = 1 engine
+    (``against_one_shard``); without the audit phase, the serve
+    auditor's ``paged-dp2`` row on the warmed engine (with it, the engine
+    is returned for that phase).  Returns (launch counts by path, the
+    warmed engine or None)."""
+    import torch
+    from repro_torch.analysis.lint.audit import capture_check, run_audit
+    from repro_torch.benchmarks.parity import record_logits
+    from repro_torch.configs import SwanConfig
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.obs import EventTrace
+    cfg = model[0]
+    mesh = make_serve_mesh(SHARDS, ["cuda:0"] * SHARDS)
+    counts = {}
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = make_engine(model, graphs=True, mesh=mesh, paged=True,
+                      page_size=PS, trace=EventTrace())
+    eng._graphs.keep_census = True
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rep = eng.warmup(max_prompt_len=WARM_PROMPT)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    census, expected = rep["census"], rep["expected"]
+    g = eng._graphs
+    log(f"  [dp{SHARDS} paged graphed] {eng.dp} shards x {eng.n_local} "
+        f"slots, {eng.pool.n_pages} pages ({eng.pool.pages_per_shard} a "
+        f"shard); warmup(max_prompt_len={WARM_PROMPT}): {warm_s:.1f} s, "
+        f"{rep['captures']} graphs captured, census {census}")
+    bad = [b for b in ("decode", "prefill", "insert", "insert_paged")
+           if census[b] < expected[b]]
+    bad += [f"chunk[{b}]" for b, n in expected["chunk"].items()
+            if census["chunk"].get(b, 0) < n]
+    check(not bad, f"[dp{SHARDS} paged graphed] census below expected in "
+          f"{bad}")
+    lazy0 = sum(g.lazy_captures.values())
+    eng.async_fetch = True
+    label = f"dp{SHARDS} paged graphed async_fetch"
+    paged = drive(kernels, eng, engine_requests(cfg), label)
+    check_launches(paged, "paged", cfg, label)
+    check(all(c <= 1 and d <= 1 for c, d in paged["per_step"]),
+          f"[{label}] more than one chunk or decode dispatch in a step")
+    rep_p = paged["report"]
+    sums = {f: sum(sh[f] for sh in rep_p["shards"])
+            for f in ("reserved_bytes", "live_bytes",
+                      "page_table_shipped_bytes")}
+    gauges = [eng.metrics.value("shard_kv_cache_live_bytes", shard=s)
+              for s in range(SHARDS)]
+    log(f"  [{label}] per-shard reports {rep_p['shards']}; sums {sums}; "
+        f"per-shard live-bytes gauges {gauges}")
+    check(len(rep_p["shards"]) == SHARDS
+          and all(sums[f] == rep_p[f] for f in sums)
+          and gauges == [sh["live_bytes"] for sh in rep_p["shards"]],
+          f"[{label}] shard entries or gauges do not match the totals")
+    eng.pool.check_consistent()
+    check(eng.pool.live_pages == 0, f"[{label}] pages leaked")
+    obs_checks(eng, paged, label)
+    census0 = eng.executable_census()
+    drive(kernels, eng, mixed_requests(cfg), f"dp{SHARDS} paged mixed")
+    c = capture_check(f"dp{SHARDS} paged graphed", lazy0,
+                      sum(g.lazy_captures.values()))
+    check(c.status == "pass" and eng.executable_census() == census0,
+          f"[dp{SHARDS} paged mixed] {c.detail}: {dict(g.lazy_captures)}")
+    counts["sharded_paged_graphed"] = paged["launches"]
+    kept = None
+    if audit:
+        kept = eng
+    else:
+        for k in kernels:
+            k.launches = 0
+        checks = run_audit(device="cuda", model=model,
+                           swan=SwanConfig(k_max=K, buffer=BUF), max_seq=S,
+                           page_size=PS, n_slots=ENGINE_SLOTS,
+                           prefill_chunk=ENGINE_CHUNK,
+                           prefill_slots=ENGINE_LANES,
+                           max_prompt_len=WARM_PROMPT,
+                           engines={"paged-dp2": eng},
+                           reqs=lambda: mixed_requests(cfg),
+                           rows=("paged-dp2",))
+        counts["sharded_audit"] = {k.name: k.launches for k in kernels}
+        for a in checks:
+            print(json.dumps({"audit": a.to_json()}), flush=True)
+        by = {a.check: a for a in checks}
+        fails = [a.to_json() for a in checks if a.status == "fail"]
+        log(f"  [dp{SHARDS} audit] {len(checks)} checks "
+            f"{dict(Counter(a.status for a in checks))}: "
+            f"{by['engine/paged-dp2'].detail}")
+        check(not fails and by["engine/paged-dp2"].status == "pass",
+              f"[dp{SHARDS} audit] {fails}")
+    del eng, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = make_engine(model, graphs=True, metrics=False, mesh=mesh)
+    label = f"dp{SHARDS} slab graphed at first use"
+    slab = drive(kernels, eng, engine_requests(cfg), label)
+    lazy, n, d = (dict(eng._graphs.lazy_captures), slab["launches"],
+                  slab["dispatches"])
+    # each capture at first use runs its dispatch once eagerly (dead
+    # lanes) before recording it: those launches count too
+    check(n["swan_decode"]
+          == groups(cfg) * cfg.n_layers * (d["decode"] + lazy.get("decode", 0))
+          and n["swan_chunk_stats"]
+          == cfg.n_layers * (d["chunk"] + lazy.get("chunk", 0))
+          and n["swan_decode_paged"] == n["swan_chunk_stats_paged"] == 0,
+          f"[{label}] launches {n} != {cfg.n_layers} x (dispatches {d} + "
+          f"captures' warm runs {lazy})")
+    check(all(c <= 1 and dd <= 1 for c, dd in slab["per_step"]),
+          f"[{label}] more than one chunk or decode dispatch in a step")
+    check(slab["tokens"] == paged["tokens"]
+          and slab["dispatches"] == paged["dispatches"],
+          f"[dp{SHARDS}] slab tokens or dispatches != paged's")
+    log(f"  [{label}] graphs captured at first use {lazy}; tokens and "
+        f"dispatches == the paged engine's")
+    counts["sharded_slab_graphed"] = n
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = make_engine(model, graphs=False, metrics=False, mesh=mesh,
+                      paged=True, page_size=PS)
+    rows2 = {}
+    record_logits(eng, rows2)
+    label = f"dp{SHARDS} paged eager"
+    ep = drive(kernels, eng, engine_requests(cfg), label)
+    ep["rows"] = rows2
+    check_launches(ep, "paged", cfg, label)
+    check(ep["tokens"] == paged["tokens"]
+          and ep["dispatches"] == paged["dispatches"]
+          and ep["report"] == paged["report"],
+          f"[dp{SHARDS}] graphed paged engine != eager (tokens, dispatches "
+          "or cache_report)")
+    counts["sharded_paged_eager"] = ep["launches"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if eager is None:
+        eager = {"paged": engine_run(kernels, model, "paged",
+                                     rows={}, paged=True, page_size=PS)[0]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    n_part = against_one_shard(kernels, model, mesh, eager["paged"], ep,
+                               f"dp{SHARDS} vs dp1")
+    p, e1 = paged["stats"], eager["paged"]["stats"]
+    g1 = (graphed or {}).get("paged")
+    log(f"  [dp{SHARDS}] graphed paged vs dp=1 "
+        + (f"graphed paged (the graphs phase, metrics off): decode-only "
+           f"steps {p['decode_ms']:.2f} vs {g1['decode_ms']:.2f} ms, chunk "
+           f"steps {p['chunk_ms']:.2f} vs {g1['chunk_ms']:.2f} ms, "
+           f"{p['steps']} vs {g1['steps']} steps, wall {p['wall_s']:.2f} vs "
+           f"{g1['wall_s']:.2f} s, mean TTFT {p['ttft_ms']:.0f} vs "
+           f"{g1['ttft_ms']:.0f} ms" if g1 else
+           f"(no graphs phase): decode-only {p['decode_ms']:.2f} ms, chunk "
+           f"steps {p['chunk_ms']:.2f} ms, {p['steps']} steps")
+        + f"; eager paged dp={SHARDS} / dp=1: decode-only "
+        f"{ep['stats']['decode_ms']:.1f} / {e1['decode_ms']:.1f} ms, chunk "
+        f"steps {ep['stats']['chunk_ms']:.1f} / {e1['chunk_ms']:.1f} ms, "
+        f"{ep['stats']['steps']} / {e1['steps']} steps; {n_part} "
+        f"request(s) parted from dp=1; phase {time.perf_counter() - t0:.1f} s")
+    return counts, kept
+
+
 # the audit phase's checks that must be present and pass (the rest must
 # not fail either)
 AUDIT_REQUIRED = tuple(
@@ -1955,7 +2245,11 @@ AUDIT_REQUIRED = tuple(
     "kernel-precheck/swan_chunk_stats_paged",
     "kernel-precheck/flash_attention",
     f"logical-view/paged-kernel/decode@pg{S // PS}",
-    f"logical-view/paged/decode@pg{S // PS}")
+    f"logical-view/paged/decode@pg{S // PS}", "engine/paged-dp2",
+    "graph-kernels/paged-dp2-kernel/decode",
+    "graph-kernels/paged-dp2-kernel/chunk", "host-sync/paged-dp2-kernel",
+    "warmup/paged-dp2-kernel/zero-capture",
+    "exec-count/paged-dp2-kernel/steady-state")
 ROOFLINE_STEPS = 16             # graphed decode steps timed for the rows
 
 
@@ -2134,7 +2428,7 @@ def metrics_on_off(kernels, eng, first, label):
                 set_obs(eng, NULL_REGISTRY, None)
             # the prefill round-robin carries over from the last run:
             # restart it, so that every run has the first run's schedule
-            eng._prefill_rr = 0
+            eng._prefill_rr = [s * eng.n_local for s in range(eng.dp)]
             r = drive(kernels, eng, engine_requests(cfg),
                       f"{label} metrics {mode}")
             check(r["tokens"] == first["tokens"]
@@ -3452,10 +3746,11 @@ def tiny_decode_check(tol=5e-5):
     return worst
 
 
-def train_run(tc, steps=None, step_ms=None, writing=None):
+def train_run(tc, steps=None, step_ms=None, writing=None, save_at=()):
     """One ``Trainer.run`` on the card in its own scope (so that its
     params and moments are freed on return): ({step: loss}, parameter
-    count, final step).  With ``step_ms`` each step's (time, the
+    count, final step).  Only the checkpoints of the steps in ``save_at``
+    are written (the trainer's final save is skipped otherwise).  With ``step_ms`` each step's (time, the
     optimizer's device time) in ms is appended, the card synchronised
     before and after the step.  With ``writing``, whether an async
     checkpoint write was running as each step began is appended."""
@@ -3464,6 +3759,12 @@ def train_run(tc, steps=None, step_ms=None, writing=None):
     from repro_torch.tree import leaves
     from repro_torch.runtime import train_loop
     tr = Trainer(tc, device="cuda")
+    real_save = tr.ckpt.save
+
+    def save(step, *args, **kwargs):
+        if step in save_at:
+            real_save(step, *args, **kwargs)
+    tr.ckpt.save = save
     real_update = train_loop.adamw_update
     if step_ms is not None:
         inner = tr.step_fn
@@ -3549,15 +3850,15 @@ def train_fullwidth(smi):
                         **base), step_ms=ms)
         t_straight = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        shutil.rmtree(f"{tmp}/a")
+        shutil.rmtree(f"{tmp}/a", ignore_errors=True)
         t0 = time.perf_counter()
         split = TrainConfig(**{**base, "checkpoint_dir": f"{tmp}/b",
                                "checkpoint_every": TRAIN_CKPT_STEP,
                                "keep_checkpoints": 2})
         writing = []
         first, _, mid = train_run(split, steps=TRAIN_SPLIT_STOP,
-                                  writing=writing)
-        shutil.rmtree(f"{tmp}/b/step_{TRAIN_SPLIT_STOP:08d}")
+                                  writing=writing,
+                                  save_at=(TRAIN_CKPT_STEP,))
         saved = Checkpointer(f"{tmp}/b").latest_step()
         resumed, _, end2 = train_run(split)
         t_split = time.perf_counter() - t0
@@ -3601,7 +3902,8 @@ def train_fullwidth(smi):
         f"{100 * mfu:.2f}% = 6 x N x tokens / step time / "
         f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s with N "
         f"= {n_params} parameters, {tokens} tokens a step; straight run "
-        f"{t_straight:.1f} s, split run with three saves and a restore {t_split:.1f} s")
+        f"{t_straight:.1f} s, split run with one save and a restore "
+        f"{t_split:.1f} s")
     return {"ms_per_step": steady, "adamw_ms": opt_ms, "mfu": mfu,
             "peak_bytes": peak}
 
@@ -3806,7 +4108,8 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
     "swan_prune": ("src/repro_torch/kernels/swan_prune/csrc/swan_prune.cu",
                    "src/repro/kernels/swan_prune/swan_prune.py:58"),
 }
-PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs", "audit",
+PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs",
+          "sharded", "audit",
           "dense", "moe", "vlm", "encdec", "hybrid", "ssm", "chunk_exact",
           "obs", "train")
 
@@ -3918,7 +4221,8 @@ def main(argv=None) -> int:
             "width (bf16)")
         record("bench", bench_phase(KERNELS))
         lap("bench")
-    model = (served_model("llama3-8b") if {"serve", "engine", "graphs", "audit"}
+    model = (served_model("llama3-8b") if {"serve", "engine", "graphs",
+                                            "sharded", "audit"}
              & set(phases) else None)
     warmed = {}
     if "serve" in phases:
@@ -3933,7 +4237,8 @@ def main(argv=None) -> int:
     if {"engine", "graphs"} & set(phases):
         log("[engine] llama3-8b, ServeEngine (4 slots, chunk 256 x 2 lanes), "
             "slab then paged, eager")
-        counts_by_path, eager_runs = engine_phase(KERNELS, model)
+        counts_by_path, eager_runs = engine_phase(
+            KERNELS, model, keep_rows="sharded" in phases)
         for path, counts in counts_by_path.items():
             record(path, counts)
         lap("engine")
@@ -3947,6 +4252,23 @@ def main(argv=None) -> int:
         for path, counts in counts_by_path.items():
             record(path, counts)
         lap("graphs")
+    if "sharded" in phases:
+        log(f"[sharded] llama3-8b, ServeEngine over make_serve_mesh"
+            f"({SHARDS}, devices=['cuda:0'] * {SHARDS}): paged graphed after "
+            f"warmup(max_prompt_len={WARM_PROMPT}), slab graphed at first "
+            "use, paged eager; against dp = 1")
+        first = ({lay: r["off"][0] for lay, r in on_off.items()}
+                 if "graphs" in phases else None)
+        counts_by_path, kept = sharded_phase(
+            KERNELS, model,
+            eager_runs if {"engine", "graphs"} & set(phases) else None,
+            first, audit="audit" in phases)
+        for path, counts in counts_by_path.items():
+            record(path, counts)
+        if kept is not None:            # the audit phase's, then freed
+            warmed["paged-dp2"] = kept
+        del kept
+        lap("sharded")
     if "audit" in phases:
         log("[audit] the serve auditor at llama3-8b's full width: slab and "
             f"{PS}-token pages graphed after warmup(max_prompt_len="

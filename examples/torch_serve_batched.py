@@ -5,7 +5,8 @@ caches.
     PYTHONPATH=src python examples/torch_serve_batched.py [--arch llama3-8b] \
         [--smoke] [--device cpu] [--no-swan] [--k 8] [--buffer 16] \
         [--quantize] [--slots 4] [--requests 8] [--paged] \
-        [--prefill-chunk 16 [--prefill-slots 2]] [--warmup] [--async-fetch]
+        [--prefill-chunk 16 [--prefill-slots 2]] [--warmup] [--async-fetch] \
+        [--data-parallel 2]
 
 The counterpart of ``examples/serve_batched.py``, on the card by default
 (every dispatch a CUDA graph replay; ``--warmup`` captures the engine's
@@ -18,9 +19,11 @@ throughput, scheduler steps and physical cache bytes (paper Eq. 1) for
 dense vs SWAN on the same requests.  ``--smoke`` takes the reference
 example's small float32 model (llama3-8b) or the arch's smoke
 configuration in float32; without it the full published configuration
-runs in bf16.  The reference's ``--data-parallel`` (a mesh) and
-``--use-pallas`` (the kernels follow the tensors' device here) are left
-out.
+runs in bf16.  ``--data-parallel N`` shards every engine's slots, caches
+and paged pool over a ``('data',)`` mesh of N shards laid over the one
+device (``make_serve_mesh(N, devices=[device] * N)``; ``--slots`` must
+divide).  The reference's ``--use-pallas`` is left out: the kernels follow
+the tensors' device here.
 """
 import argparse
 import os
@@ -33,6 +36,7 @@ sys.path.insert(0, os.path.join(_ROOT, "src"))
 from repro_torch.configs import (ARCH_IDS, SwanConfig,  # noqa: E402
                                  get_config, get_smoke_config)
 from repro_torch.launch.io import make_batch  # noqa: E402
+from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.runtime.serve_engine import Request, ServeEngine  # noqa: E402
 from repro_torch.runtime.serve_loop import calibrate_swan  # noqa: E402
@@ -74,6 +78,10 @@ def main(argv=None, params=None):
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="per-step prefill token budget (default: "
                          "prefill-slots * prefill-chunk)")
+    ap.add_argument("--data-parallel", type=int, default=None,
+                    help="shard slots, caches and the paged pool over a "
+                         "('data',) mesh of this many shards on the one "
+                         "device (--slots must divide)")
     ap.add_argument("--k", type=int, default=None)
     ap.add_argument("--buffer", type=int, default=16)
     ap.add_argument("--quantize", action="store_true")
@@ -102,7 +110,9 @@ def main(argv=None, params=None):
     dev = args.device
     if params is None:
         params = api.init_params(cfg, 0, dev)
-    engine_kw = dict(max_seq=args.max_seq, n_slots=args.slots,
+    mesh = (make_serve_mesh(args.data_parallel, [dev] * args.data_parallel)
+            if args.data_parallel else None)
+    engine_kw = dict(max_seq=args.max_seq, n_slots=args.slots, mesh=mesh,
                      prefill_chunk=args.prefill_chunk,
                      prefill_slots=args.prefill_slots,
                      prefill_budget=args.prefill_budget,

@@ -376,7 +376,7 @@ def dispatch_checks(eng, label: str) -> List[AuditCheck]:
     if eng.prefill_chunk is not None:
         c = eng.prefill_chunk
         bodies.append(("chunk", dispatch_costs(
-            eng, "chunk", page_bucket=pb, chunk=c,
+            eng, "chunk", page_bucket=pb, n_lanes=eng.dp, chunk=c,
             prefix=None if eng.paged else c)))
     for fam, costs in bodies:
         out.append(transfer_check(costs, f"{label}/{fam}"))
@@ -638,22 +638,30 @@ def run_audit(device: str = "cuda", arch: str = "llama3-8b",
               n_slots: int = 2, prefill_chunk: Optional[int] = None,
               prefill_slots: int = 2, max_prompt_len: Optional[int] = None,
               engines: Optional[Dict[str, Any]] = None,
-              reqs: Optional[Callable[[], list]] = None) -> List[AuditCheck]:
+              reqs: Optional[Callable[[], list]] = None,
+              rows: Optional[Sequence[str]] = None) -> List[AuditCheck]:
     """Build the engine matrix and run every check.  Variants: ``slab``
     and ``paged`` read SWAN through the plain PyTorch path, ``slab-kernel``
     and ``paged-kernel`` through the kernels (the card only: graphed, after
-    ``warmup(max_prompt_len)``); ``paged-dp2`` waits for a mesh.
+    ``warmup(max_prompt_len)``); ``paged-dp2`` and ``paged-dp2-kernel``
+    are the paged rows on a two-shard mesh laid over the engine's own
+    device (``make_serve_mesh(2, devices=[device] * 2)``), with the same
+    checks, summed up by ``engine/paged-dp2``.
 
     ``smoke`` (default) builds ``arch``'s smoke config in float32 with
     seeded weights and calibrated projections, as the reference does;
     ``model=(cfg, params, projections)`` audits a given model instead (at
     the shapes given).  ``engines`` may hold already warmed graphed kernel
-    engines ({"slab": eng, "paged": eng}, their ``GraphSet.keep_census``
-    set before their warmup); ``reqs()`` gives the driven workload."""
+    engines ({"slab": eng, "paged": eng, "paged-dp2": eng}, their
+    ``GraphSet.keep_census`` set before their warmup); ``reqs()`` gives
+    the driven workload; ``rows`` picks layouts ("slab", "paged",
+    "paged-dp2"; default all), ``engine/paged-dp2`` coming with the
+    ``paged-dp2`` row."""
     import torch
 
     from repro_torch.configs import SwanConfig, get_config, get_smoke_config
     from repro_torch.launch.io import make_batch
+    from repro_torch.launch.mesh import make_serve_mesh
     from repro_torch.models.registry import get_model
     from repro_torch.runtime.serve_engine import ServeEngine
     from repro_torch.runtime.serve_loop import calibrate_swan
@@ -694,7 +702,11 @@ def run_audit(device: str = "cuda", arch: str = "llama3-8b",
         cfg, swan, max_seq, page_size=page_size,
         chunk_q=prefill_chunk * (cfg.n_heads // cfg.n_kv_heads))
     on_card = dev.type == "cuda"
-    layouts = {"slab": {}, "paged": dict(paged=True, page_size=page_size)}
+    layouts = {"slab": {}, "paged": dict(paged=True, page_size=page_size),
+               "paged-dp2": dict(paged=True, page_size=page_size,
+                                 mesh=make_serve_mesh(2, [dev, dev]))}
+    if rows is not None:
+        layouts = {k: v for k, v in layouts.items() if k in rows}
     # the detector's page bucket: the largest, so the view outgrows logits
     pb = max_seq // page_size
     view = n_slots * cfg.n_kv_heads * pb * page_size * swan.k_max
@@ -738,8 +750,14 @@ def run_audit(device: str = "cuda", arch: str = "llama3-8b",
                 dispatch_costs(eng, "decode", page_bucket=pb),
                 f"{label}/decode@pg{pb}", view))
         del eng
-    checks.append(AuditCheck("engine/paged-dp2", "skip",
-                             f"{torch.cuda.device_count() if on_card else 0}"
-                             " CUDA device(s) and no mesh: sharded serving "
-                             "waits for the port's sharding (ROADMAP A.8)"))
+    if "paged-dp2" not in layouts:
+        return checks
+    dp2 = [c for c in checks if "/paged-dp2" in c.check]
+    bad = [c.check for c in dp2 if c.status == "fail"]
+    checks.append(AuditCheck(
+        "engine/paged-dp2", "fail" if bad else "pass",
+        f"failed: {bad}" if bad else
+        f"two shards on {dev}, {n_slots // 2} slots each: "
+        f"{sum(c.status == 'pass' for c in dp2)} checks pass, "
+        f"{sum(c.status == 'skip' for c in dp2)} skip"))
     return checks

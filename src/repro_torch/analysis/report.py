@@ -13,7 +13,7 @@ graphed step) and ``device`` (the card's name and power limit as
 nvidia-smi prints them); the table then adds the analyzer's flops and
 bytes, the step time and the model FLOPs' share of the card's peak over
 that time.  The reference's ``dryrun_table`` reads mesh dry-runs, which
-wait for the port's sharding (ROADMAP A.8).
+wait for the port's dry-run (ROADMAP A.2).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """SWAN attention over the hybrid cache (paper Algorithm 1, 13-17).
 
-Port of the pure path of ``repro.core.swan_attention`` (no split-S):
+Port of the pure path of ``repro.core.swan_attention``:
 
   scores = [ q̂ · expand(sparse) ‖ q̂ · buffer ] ;  o = softmax(scores) · V
 
@@ -12,17 +12,21 @@ reads gather the pool's pages into each sequence's logical view first
 (``paged_logical_view``).  This is the CPU path and the second oracle of the
 kernels (``repro_torch.kernels.swan_decode`` and ``.swan_chunk``); the serve
 path takes a kernel when the cache lives on the card
-(``repro_torch.kernels.dispatch``).
+(``repro_torch.kernels.dispatch``).  Split-S over a mesh axis
+(``_sparse_stats_sharded``, the flash-decoding schedule) is a schedule of
+this plain read; a cache on the card goes through the kernel instead,
+itself split-S over the sequence, since the mesh lies on one device.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.hybrid_cache import _bits, per_seq_pos, sparse_len
 from repro_torch.core.winnow import unpack_dense
+from repro_torch.sharding.api import one_device
 
 Params = Dict[str, Any]
 
@@ -39,16 +43,16 @@ def _deq(side: Params) -> torch.Tensor:
 
 
 def _sparse_stats(qf: torch.Tensor, k_side: Params, v_side: Params, swan,
-                  sp_len: torch.Tensor
+                  sp_len: torch.Tensor, s_offset: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Partial softmax statistics over the sparse cache.
 
       scores[t] = Σ_j k_vals[t,j] · q̂[k_idx[t,j]]            (gather over q̂)
       o[d]      = Σ_t Σ_j (p[t]·v_vals[t,j]) δ[v_idx[t,j]=d]  (scatter-add)
 
-    ``sp_len`` [B] masks each sequence's valid prefix.  Returns
-    (m [B,Kv,G], l [B,Kv,G], o_unnorm [B,Kv,G,dh]) with m = 0 on an empty
-    prefix."""
+    ``sp_len`` [B] masks each sequence's valid prefix; the sides may be a
+    slice of the sequence starting at ``s_offset``.  Returns (m [B,Kv,G],
+    l [B,Kv,G], o_unnorm [B,Kv,G,dh]) with m = 0 on an empty prefix."""
     B, Kv, G, dh = qf.shape
     S = k_side["vals"].shape[2]
     k_max = swan.k_max
@@ -67,7 +71,7 @@ def _sparse_stats(qf: torch.Tensor, k_side: Params, v_side: Params, swan,
         q_b = qf.to(kv_.dtype)[:, :, :, None, :].expand(B, Kv, G, S, dh)
         q_at = torch.gather(q_b, -1, kidx)             # [B,Kv,G,S,k]
         s_sp = (q_at.float() * kv_.float()[:, :, None]).sum(-1) * scale
-    valid = (torch.arange(S, device=qf.device)[None, None, None, :]
+    valid = ((s_offset + torch.arange(S, device=qf.device))[None, None, None]
              < sp_len[:, None, None, None])
     s_sp = s_sp.masked_fill(~valid, -math.inf)
 
@@ -89,17 +93,51 @@ def _sparse_stats(qf: torch.Tensor, k_side: Params, v_side: Params, swan,
     return m_safe, l, o
 
 
+def _sparse_stats_sharded(qf: torch.Tensor, cache: Params, swan,
+                          sp_len: torch.Tensor, mesh, seq_axis: str
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split-S across ``seq_axis``: each shard's local stats over its
+    sequence slice at its offset, then the O(dh) stats merged (the
+    reference's one pmax + two psums).  On a mesh laid over one device the
+    shards' stats stack on a shard axis and the merge is a max and two
+    sums over it; the batch needs no split there."""
+    one_device(mesh)
+    S = cache["k"]["vals"].shape[2]
+    n_shard = mesh.shape[seq_axis]
+    s_local = S // n_shard
+
+    def piece(side: Params, sh: int) -> Params:
+        return {n: x[:, :, sh * s_local:(sh + 1) * s_local]
+                for n, x in side.items()}
+    m, l, o = (torch.stack(t) for t in zip(*[
+        _sparse_stats(qf, piece(cache["k"], sh), piece(cache["v"], sh),
+                      swan, sp_len, sh * s_local)
+        for sh in range(n_shard)]))                   # [n_shard, B, Kv, G(, dh)]
+    m_g = m.amax(0)
+    corr = torch.exp(m - m_g)
+    return m_g, (l * corr).sum(0), (o * corr[..., None]).sum(0)
+
+
 def swan_decode_attention(q_hat: torch.Tensor, cache: Params, swan,
-                          pos: torch.Tensor) -> torch.Tensor:
+                          pos: torch.Tensor, mesh=None,
+                          seq_axis: Optional[str] = None) -> torch.Tensor:
     """q̂ [B, Kv, G, dh] (rotated, grouped) -> o [B, Kv, G, dh] (rotated).
 
     Joint exact softmax over [winnowed sparse ‖ dense buffer]; ``pos`` is
-    the per-sequence decode position [B]."""
+    the per-sequence decode position [B].  With ``mesh``/``seq_axis`` (an
+    axis that splits the sequence evenly) the sparse part runs split-S."""
     dh = q_hat.shape[-1]
     qf = q_hat.float()
     sp = sparse_len(swan, pos)                         # [B]
     scale = 1.0 / math.sqrt(dh)
-    m_sp, l_sp, o_sp = _sparse_stats(qf, cache["k"], cache["v"], swan, sp)
+    S = cache["k"]["vals"].shape[2]
+    if (mesh is not None and seq_axis in mesh.axis_names
+            and S % mesh.shape[seq_axis] == 0 and S >= mesh.shape[seq_axis]):
+        m_sp, l_sp, o_sp = _sparse_stats_sharded(qf, cache, swan, sp, mesh,
+                                                 seq_axis)
+    else:
+        m_sp, l_sp, o_sp = _sparse_stats(qf, cache["k"], cache["v"], swan,
+                                         sp)
 
     if cache["buf_k"].shape[2] == 0:    # bt=0 ablation: sparse-only softmax
         return (o_sp / torch.clamp(l_sp, min=1e-30)[..., None]).to(q_hat.dtype)
@@ -257,12 +295,13 @@ def paged_logical_view(cache: Params, page_tab: torch.Tensor) -> Params:
 
 
 def swan_decode_attention_paged(q_hat: torch.Tensor, cache: Params, swan,
-                                pos: torch.Tensor,
-                                page_tab: torch.Tensor) -> torch.Tensor:
+                                pos: torch.Tensor, page_tab: torch.Tensor,
+                                mesh=None, seq_axis: Optional[str] = None
+                                ) -> torch.Tensor:
     """SWAN decode attention over the paged cache: page-table gather, then
     the slab layout's joint softmax (token-identical to the slab)."""
     return swan_decode_attention(q_hat, paged_logical_view(cache, page_tab),
-                                 swan, pos)
+                                 swan, pos, mesh=mesh, seq_axis=seq_axis)
 
 
 # ---------------------------------------------------------------------------

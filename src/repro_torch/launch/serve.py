@@ -33,6 +33,11 @@ the reference launcher's on the same weights by design: the reference's
 session decodes its first token at the token count, inside the patch
 prefix, and the port's at the prefill's full length.  ``--pool-pages`` (the reference's
 flag) sizes the paged pool below the full reservation.
+``--data-parallel N`` (or ``--mesh-shape data=N,...``) serves the engine
+over a ``('data',)`` mesh of N shards (``repro_torch.launch.mesh``): on
+``--device cpu`` its devices are N CPU entries, on the card N visible
+cards, so one card refuses N > 1, as the reference refuses a mesh larger
+than its devices.
 
 run on the card, where every dispatch replays a CUDA graph per shape
 bucket (``--engine --warmup`` captures the engine's whole graph family
@@ -60,6 +65,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.build import build_all
 from repro_torch.launch.io import make_batch
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.registry import get_model, swan_applicable
 from repro_torch.obs import EventTrace
 from repro_torch.runtime.serve_engine import Request, ServeEngine
@@ -113,6 +119,15 @@ def main(argv=None):
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="engine: per-step prefill token budget "
                          "(default: prefill-slots * prefill-chunk)")
+    ap.add_argument("--data-parallel", type=int, default=None,
+                    help="engine: shard slots, caches and the paged pool "
+                         "over a ('data',) mesh of this many devices "
+                         "(shard-local slot scheduler; n_slots must "
+                         "divide)")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="engine: explicit mesh as 'AXIS=N,AXIS=N' (must "
+                         "include a data axis), e.g. 'data=4' or "
+                         "'data=4,model=2' — overrides --data-parallel")
     ap.add_argument("--pool-grow", action="store_true",
                     help="paged: grow the pool when it runs dry instead of "
                          "holding admissions")
@@ -157,6 +172,8 @@ def main(argv=None):
                          "--prefill-chunk")
     if args.paged and not (args.engine and args.swan):
         raise SystemExit("--paged requires --engine and --swan")
+    if (args.data_parallel or args.mesh_shape) and not args.engine:
+        raise SystemExit("--data-parallel/--mesh-shape require --engine")
     if args.pool_grow and not args.paged:
         raise SystemExit("--pool-grow requires --paged")
     if (args.trace_out or args.profile_steps) and not args.engine:
@@ -237,8 +254,29 @@ def _write_metrics(registry, path) -> None:
     print(f"metrics -> {path}")
 
 
+def _serve_mesh(args, device: torch.device):
+    """The engine's mesh from --mesh-shape / --data-parallel (None = one
+    shard): N entries of the CPU, or N visible cards."""
+    if args.mesh_shape:
+        pairs = [kv.split("=") for kv in args.mesh_shape.split(",")]
+        shape, axes = [int(n) for _, n in pairs], [ax for ax, _ in pairs]
+    elif args.data_parallel:
+        shape, axes = [args.data_parallel], ["data"]
+    else:
+        return None
+    n = 1
+    for x in shape:
+        n *= x
+    try:
+        return make_mesh(shape, axes,
+                         [device] * n if device.type == "cpu" else None)
+    except ValueError as e:
+        raise SystemExit(f"--data-parallel/--mesh-shape: {e}") from e
+
+
 def _run_engine(cfg, params, swan, projections, args, device,
                 graphs: bool) -> ServeEngine:
+    mesh = _serve_mesh(args, device)
     trace = EventTrace(args.trace_out, keep=False) if args.trace_out else None
     eng = ServeEngine(cfg, params, swan=swan, projections=projections,
                       max_seq=args.max_seq, n_slots=args.batch,
@@ -247,9 +285,10 @@ def _run_engine(cfg, params, swan, projections, args, device,
                       prefill_chunk=args.prefill_chunk,
                       prefill_slots=args.prefill_slots,
                       prefill_budget=args.prefill_budget,
-                      pool_grow=args.pool_grow, admission=args.admission,
-                      graphs=graphs, async_fetch=args.async_fetch,
-                      trace=trace, device=device)
+                      mesh=mesh, pool_grow=args.pool_grow,
+                      admission=args.admission, graphs=graphs,
+                      async_fetch=args.async_fetch, trace=trace,
+                      device=device)
     if args.warmup:
         rep = eng.warmup(max_prompt_len=args.max_prompt_len)
         print(f"warmup: {rep['census']['total']} graphs, {rep['captures']} "
@@ -257,6 +296,9 @@ def _run_engine(cfg, params, swan, projections, args, device,
               f"({ {k: v['captures'] for k, v in rep['by_kind'].items()} })")
     if args.profile_steps:
         eng.profile_steps(args.profile_steps, args.profile_dir)
+    if mesh is not None:
+        print(f"mesh: {dict(mesh.shape)} — {eng.dp} shards x "
+              f"{eng.n_local} slots")
     n_req = args.requests or args.batch * 2
     k_cycle = ([None] if (swan is None or not args.mixed_k)
                else [swan.k_max, max(swan.k_max // 2, 1),

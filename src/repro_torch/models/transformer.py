@@ -38,6 +38,7 @@ from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
                                        init_norm, param_generator,
                                        torch_dtype)
 from repro_torch.models.mlp import mlp_forward
+from repro_torch.sharding.api import current_rules
 
 Params = Dict[str, Any]
 
@@ -399,6 +400,18 @@ def _k_per_layer(cfg, swan, projections) -> list:
     return [int(k) for k in k_layer]
 
 
+def _swan_seq_ctx():
+    """(mesh, seq_axis) for split-S SWAN decode, from the installed rules'
+    ``swan_sparse`` spec (its sequence dim); (None, None) without rules."""
+    rules = current_rules()
+    if rules is None:
+        return None, None
+    spec = rules.spec("swan_sparse")
+    if spec is None or len(spec) < 3 or spec[2] is None:
+        return None, None
+    return rules.mesh, spec[2]
+
+
 def _swan_layer_decode(lp: Params, p_qk_l: torch.Tensor, cache_l: Params,
                        cfg, swan, x: torch.Tensor, pos: torch.Tensor,
                        k_act, page_tab: Optional[torch.Tensor] = None
@@ -406,18 +419,24 @@ def _swan_layer_decode(lp: Params, p_qk_l: torch.Tensor, cache_l: Params,
     """One layer's SWAN decode: insert into the hybrid cache (in place; the
     slab, or the pool through ``page_tab``), then read it — through a CUDA
     kernel when the cache is on the card, through the plain gather/scatter
-    path otherwise."""
+    path otherwise.  Rules that split the sparse cache's sequence over a
+    mesh axis (``_swan_seq_ctx``) run the plain read split-S; a cache on
+    the card still goes through the kernel, which is split-S over the
+    sequence itself: the mesh is one device, so the split changes where
+    nothing lives."""
     B = x.shape[0]
     Kv, G, dh = cfg.n_kv_heads, cfg.q_group, cfg.d_head
     q, k, v = attn.project_qkv(lp["attn"], cfg, x, pos[:, None])
     q_hat = rotate_q(q, p_qk_l, Kv)[:, 0]                        # [B,Kv,G,dh]
     k_hat = rotate_k(k, p_qk_l)                                  # [B,1,Kv,dh]
+    mesh, seq_axis = _swan_seq_ctx()
     if page_tab is None:
         hc.swan_cache_insert_decode_(cache_l, swan, k_hat, v, pos, k_act=k_act)
         if kernel_supported(swan, cache_l["k"]["vals"]):
             o = swan_decode_from_cache(q_hat, cache_l, swan, pos)
         else:
-            o = swa.swan_decode_attention(q_hat, cache_l, swan, pos)
+            o = swa.swan_decode_attention(q_hat, cache_l, swan, pos,
+                                          mesh=mesh, seq_axis=seq_axis)
     else:
         pc.paged_insert_decode_(cache_l, swan, k_hat, v, pos, page_tab,
                                 k_act=k_act)
@@ -426,7 +445,8 @@ def _swan_layer_decode(lp: Params, p_qk_l: torch.Tensor, cache_l: Params,
                                              page_tab)
         else:
             o = swa.swan_decode_attention_paged(q_hat, cache_l, swan, pos,
-                                                page_tab)
+                                                page_tab, mesh=mesh,
+                                                seq_axis=seq_axis)
     return attn.output_proj(lp["attn"], o.reshape(B, 1, Kv * G, dh))
 
 

@@ -40,6 +40,7 @@ and hands it out as CUDA's DOT text (:meth:`GraphSet.dot`:
 from __future__ import annotations
 
 import ctypes
+import gc
 import os
 import tempfile
 import time
@@ -111,8 +112,16 @@ class GraphSet:
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=self.keep_census)
         before = {k: k.captured for k in KERNELS}
-        with torch.cuda.graph(graph, pool=self._pool):
-            outputs = fn(*inputs)
+        # a collection mid-capture may free an unreachable engine's graphs,
+        # and destroying a graph then invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                outputs = fn(*inputs)
+        finally:
+            if collecting:
+                gc.enable()
         tally = {k: k.captured - before[k] for k in KERNELS
                  if k.captured != before[k]}
         return _Graph(graph, inputs, outputs, tally)

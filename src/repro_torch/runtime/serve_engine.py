@@ -1,7 +1,8 @@
-"""Continuous-batching serve engine: a slot scheduler over batched caches.
+"""Continuous-batching serve engine: a shard-local slot scheduler over
+batched caches.
 
-Port of ``repro.runtime.serve_engine`` without a mesh (one shard) and
-without AOT lowering (``lower_decode`` / ``lower_chunk``).
+Port of ``repro.runtime.serve_engine`` without AOT lowering
+(``lower_decode`` / ``lower_chunk``).
 
   * a request queue (FIFO by default; ``admission="srf"`` picks the
     shortest remaining request first) feeds ``n_slots`` cache slots;
@@ -64,9 +65,36 @@ token for token.  Each engine step issues at most one chunk dispatch and
 one decode dispatch (``dispatches``).  Monolithic admission prefills into
 one single-slot transient shared by every prompt bucket, then inserts it.
 
+Mesh sharding (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh` with a
+``data`` axis): slots map to shards contiguously, ``slot -> (shard =
+slot // n_local, lane = slot % n_local)``, and the host scheduler is
+shard-local, as the reference's: admission places a request only in a
+shard with a free lane (and, paged, free pages in that shard's block of
+the pool: ``runtime.page_pool`` keeps one free list per shard, with
+shard-local page indices and a trash page per shard), the budgeted
+round-robin prefill selection runs per shard with the chunk's lanes laid
+out ``[dp, P_local]``, the pool grows per shard, and retirement returns
+pages to the owner's free list.  The host builds exactly the reference's
+shard-local operands (lanes parked at ``n_local`` off their shard, local
+page-table entries).  Every device of the mesh must be ONE device (the
+CPU, or the one card): the state stays one tensor per leaf with its data
+axis laid out shard-major, the pool's page axis ``dp`` blocks of
+``pages_per_shard``, and each dispatch turns the local operands into the
+device's rows inside its body (``sharding.api.shard_map_compat``, inside
+the captured graph), so a dispatch launches each kernel once per layer
+over every shard and reads the weights once, as at dp = 1; the decode
+dispatch keeps dp = 1's shapes.  A mesh over distinct devices raises
+``NotImplementedError`` (ROADMAP A.3, multi-card placement: the port
+runs where one card is all there is, so such a path could be neither run
+nor held to the reference), and a ``meta`` mesh (``make_production_mesh``)
+is refused.  ``shard_params=True`` (it needs a ``model`` axis) keeps the
+leaves whole: on one device the reference's gather at dispatch is the
+identity.
+
 ``cache_report()`` reports ``reserved_bytes`` (allocated now), ``live_bytes``
 (addressable by live tokens; equal to reserved on the slab) and, paged,
-``page_table_shipped_bytes`` (the table prefix a decode dispatch ships).
+``page_table_shipped_bytes`` (the table prefix a decode dispatch ships),
+with one ``shards`` entry per shard summing exactly to the totals.
 
 Observability (``repro_torch.obs``, the reference's metric and event
 names): the engine carries a ``metrics`` registry (``metrics=False`` swaps
@@ -109,6 +137,10 @@ from repro_torch.runtime.graphs import GraphSet
 from repro_torch.runtime.page_pool import PagePool, PagePoolExhausted
 from repro_torch.runtime.sampling import sample_token
 from repro_torch.runtime.serve_loop import serve_cache_report
+from repro_torch.sharding.api import (P, ShardLayout, one_device,
+                                      shard_map_compat)
+from repro_torch.sharding.serve_specs import serve_state_pspecs
+from repro_torch.sharding.specs import dp_axes
 
 Params = Dict[str, Any]
 
@@ -201,7 +233,12 @@ class ServeEngine:
     and an encoder-decoder config is refused, as in the reference.  A
     family without a paged layout or chunked prefill (hybrid, ssm) refuses
     ``paged`` and ``prefill_chunk``; its cache report is the analytic
-    Eq. 1 report (attention layers only)."""
+    Eq. 1 report (attention layers only).  ``mesh`` (a mesh with a
+    ``data`` axis, all its devices one device, which ``device`` must be
+    when given) shards the batched state over ``data`` (see the module
+    docstring); ``n_slots`` and ``n_pages`` must divide by its
+    data-parallel degree ``dp``, and ``n_local = n_slots // dp`` slots
+    belong to each shard."""
 
     def __init__(self, cfg, params, swan=None, projections=None,
                  max_seq: int = 4096, n_slots: int = 4, paged: bool = False,
@@ -209,6 +246,7 @@ class ServeEngine:
                  bucket_prompts: bool = True,
                  prefill_chunk: Optional[int] = None, prefill_slots: int = 1,
                  prefill_budget: Optional[int] = None,
+                 mesh=None, shard_params: bool = False,
                  pool_grow: bool = False, admission: str = "fifo",
                  graphs: Optional[bool] = None, async_fetch: bool = False,
                  metrics=True, trace: Optional[EventTrace] = None,
@@ -217,6 +255,26 @@ class ServeEngine:
             raise NotImplementedError(
                 "encoder-decoder serving needs per-request encoder frames; "
                 "use the lockstep ServeSession for whisper-style models")
+        # --- mesh topology: slot -> (shard, lane) ----------------------
+        self.mesh = mesh
+        if mesh is not None:
+            if "data" not in mesh.axis_names:
+                raise ValueError("serve mesh needs a 'data' axis — build it "
+                                 "with repro_torch.launch.mesh."
+                                 "make_serve_mesh")
+            self._dpx = dp_axes(mesh)
+            self.dp = int(np.prod([mesh.shape[a] for a in self._dpx]))
+        else:
+            self._dpx = None
+            self.dp = 1
+        if self.dp < 1 or n_slots % self.dp:
+            raise ValueError(f"n_slots={n_slots} not divisible by the "
+                             f"mesh's data-parallel degree {self.dp}")
+        self.n_local = n_slots // self.dp
+        if shard_params and (mesh is None or "model" not in mesh.axis_names):
+            raise ValueError("shard_params needs a mesh with a 'model' axis")
+        if mesh is not None:
+            device = one_device(mesh, device)
         self.device = resolve_device(device)
         if graphs is None:
             graphs = self.device.type == "cuda"
@@ -277,7 +335,9 @@ class ServeEngine:
         if prefill_slots > 1 and prefill_chunk is None:
             raise ValueError("prefill_slots > 1 (batched concurrent "
                              "prefill) requires prefill_chunk")
-        self.prefill_slots = min(prefill_slots, n_slots)
+        # per shard: each shard's selected lanes form its own block of the
+        # packed chunk dispatch
+        self.prefill_slots = min(prefill_slots, self.n_local)
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError(f"prefill_budget={prefill_budget} must be >= 1")
         if prefill_budget is not None and prefill_chunk is None:
@@ -298,11 +358,17 @@ class ServeEngine:
                 raise ValueError(f"max_seq={max_seq} not divisible by "
                                  f"page_size={page_size}")
             max_pages = max_seq // page_size
-            # default pool: the full reservation (+1 trash page) rounded up
-            # to a multiple of 8 pages; a smaller n_pages over-commits
+            # default pool: the full per-shard reservation (+1 trash page
+            # per shard) rounded up to a multiple of 8 pages per shard; a
+            # smaller n_pages over-commits
             if n_pages is None:
-                n_pages = -(-(n_slots * max_pages + 1) // 8) * 8
-            self.pool = PagePool(n_pages, max_pages, n_slots, page_size)
+                n_pages = self.dp * (
+                    -(-(self.n_local * max_pages + 1) // 8) * 8)
+            elif n_pages % self.dp:
+                raise ValueError(f"n_pages={n_pages} not divisible by the "
+                                 f"mesh's data-parallel degree {self.dp}")
+            self.pool = PagePool(n_pages, max_pages, n_slots, page_size,
+                                 n_shards=self.dp)
             self.pool.bind_obs(self.metrics, trace,
                                step_fn=lambda: self.step_count)
             self.state = self.api.init_paged_state(
@@ -314,6 +380,26 @@ class ServeEngine:
         # the slab never reallocates: its bytes are checked once here
         self._slab_bytes = None if paged else self._slab_check()
 
+        # --- mesh placement: data-parallel compute only -----------------
+        # the dispatch bodies are lane-local (no split-S stat merge), so
+        # every non-data axis is stripped from the serve-state specs; on
+        # one device they must describe the layout's shard-major blocks
+        self._layout: Optional[ShardLayout] = None
+        self._state_specs = None
+        if mesh is not None:
+            keep = set(self._dpx)
+
+            def _dp_only(spec):
+                return P(*[ax if (ax in keep or (isinstance(ax, tuple)
+                                                 and set(ax) <= keep))
+                           else None for ax in tuple(spec)])
+            specs = serve_state_pspecs(self.state, mesh)
+            self._state_specs = _tree_map_specs(_dp_only, specs)
+            self._layout = ShardLayout(
+                self.dp, self.n_local,
+                self.pool.pages_per_shard if paged else 0)
+            self._layout.check_specs(self.state, self._state_specs)
+
         self.queue: deque = deque()
         self.slots: List[Optional[_Slot]] = [None] * n_slots
         self.slot_pos = np.full((n_slots,), -1, np.int32)   # next decode pos
@@ -321,7 +407,8 @@ class ServeEngine:
         self.next_tok = np.zeros((n_slots,), np.int32)
         self.step_count = 0
         self.completions: List[Completion] = []
-        self._prefill_rr = 0            # round-robin pointer over slots
+        # per-shard round-robin pointers over prefill lanes
+        self._prefill_rr = [s * self.n_local for s in range(self.dp)]
         # one static device buffer per shipped page-table width, with the
         # pool version it holds (graphs read the buffer in place)
         self._tables: Dict[int, torch.Tensor] = {}
@@ -494,7 +581,7 @@ class ServeEngine:
         ``width``: the shipped page-table width (paged) or None."""
         tab = None if width is None else self._device_table(width)
 
-        def fn(tok, pos, k):
+        def body(tok, pos, k, tab):
             kw: Dict[str, Any] = {}
             if self._k_threading:
                 kw["k_active"] = k
@@ -504,6 +591,12 @@ class ServeEngine:
                                              self.state, self.swan,
                                              self.projections, **kw)
             return logits, torch.argmax(logits, dim=-1)
+        if self._layout is not None:
+            body = shard_map_compat(body, self._layout, (
+                None, None, None, None if tab is None else "pages"))
+
+        def fn(tok, pos, k):
+            return body(tok, pos, k, tab)
         return self._dispatch("decode", width, fn, [tok, pos, k],
                               self._dead_decode)
 
@@ -516,11 +609,13 @@ class ServeEngine:
     def _chunk_call(self, toks, slot, start, tlen, k, width: Optional[int],
                     prefix: Optional[int]):
         """Batched chunk dispatch -> (logits [P, V], greedy ids [P]); the
-        bucket is (lanes, chunk width, page width | slab read prefix)."""
+        bucket is (lanes, chunk width, page width | slab read prefix).
+        Under a mesh ``slot`` holds shard-local lanes laid out ``[dp,
+        P_local]``."""
         tab = None if width is None else self._device_table(width)
         n_lanes, C = toks.shape
 
-        def fn(toks, slot, start, tlen, k):
+        def body(toks, slot, start, tlen, k, tab):
             kw: Dict[str, Any] = {}
             if self._k_threading:
                 kw["k_active"] = k
@@ -532,14 +627,22 @@ class ServeEngine:
                 self.params, self.cfg, {"tokens": toks}, self.state, slot,
                 start, self.swan, self.projections, true_len=tlen, **kw)
             return logits, torch.argmax(logits, dim=-1)
+        if self._layout is not None:
+            body = shard_map_compat(body, self._layout, (
+                None, "lanes", None, None, None,
+                None if tab is None else "pages"))
+
+        def fn(toks, slot, start, tlen, k):
+            return body(toks, slot, start, tlen, k, tab)
         return self._dispatch("chunk", (n_lanes, C, width, prefix), fn,
                               [toks, slot, start, tlen, k],
                               lambda: self._dead_chunk(n_lanes, C))
 
     def _dead_chunk(self, n_lanes: int, C: int) -> List[np.ndarray]:
-        """Chunk operands with every lane parked at slot = n_slots."""
+        """Chunk operands with every lane parked off its shard (slot =
+        n_local; n_slots at dp = 1)."""
         return [np.zeros((n_lanes, C), np.int64),
-                np.full((n_lanes,), self.n_slots, np.int64),
+                np.full((n_lanes,), self.n_local, np.int64),
                 np.zeros((n_lanes,), np.int64), np.ones((n_lanes,), np.int64),
                 np.full((n_lanes,), self._k_fill, np.int64)]
 
@@ -592,12 +695,17 @@ class ServeEngine:
 
     def _insert_call(self, pad_len: int, slot, phys=None) -> None:
         """Insert the transient into lane ``slot`` (``n_slots`` parks it:
-        ring and slab writes drop; paged, ``phys`` names the trash page)."""
+        ring and slab writes drop; paged, ``phys`` names the trash page).
+        Paged under a mesh, ``phys`` holds the slot's shard-local pages:
+        the insert lands on the owner's block of the pool."""
         state1 = self._transient_state(pad_len)
         if self.paged:
             ps = self.pool.page_size
+            layout = self._layout
 
             def fn(slot, phys):
+                if layout is not None:
+                    phys = layout.slot_pages(slot, phys)
                 pc.paged_insert_prefill_(self.state, state1, slot, phys, ps)
             n_pg = -(-pad_len // ps)
             self._dispatch("insert_paged", pad_len, fn, [slot, phys],
@@ -740,6 +848,10 @@ class ServeEngine:
         """Winnowed (sparse-resident) tokens at decode position ``pos``."""
         return max(pos + 1 - self.swan.buffer, 0)
 
+    def shard_of(self, slot: int) -> int:
+        """The mesh shard that owns ``slot`` (0 on a single device)."""
+        return slot // self.n_local
+
     def _page_bucket(self, slots) -> int:
         """Power-of-two bucket of logical pages covering every mapping in
         ``slots``: the shipped page-table prefix width."""
@@ -787,8 +899,8 @@ class ServeEngine:
                              mode=mode).inc()
         if self.trace is not None:
             self.trace.emit("admit", step=self.step_count, uid=req.uid,
-                            slot=slot, shard=0, prompt_len=len(req.tokens),
-                            k=req.k, mode=mode)
+                            slot=slot, shard=self.shard_of(slot),
+                            prompt_len=len(req.tokens), k=req.k, mode=mode)
         if self.prefill_chunk is not None:
             # chunked admission claims the slot; chunks land as the
             # round-robin reaches it.  Paged: the prompt's whole winnow need
@@ -852,7 +964,8 @@ class ServeEngine:
                 self.step_count - s.admitted_step)
         if self.trace is not None:
             self.trace.emit("retire", step=self.step_count, uid=s.req.uid,
-                            slot=slot, shard=0, n_tokens=len(s.generated),
+                            slot=slot, shard=self.shard_of(slot),
+                            n_tokens=len(s.generated),
                             reason=reason, admitted_step=s.admitted_step,
                             first_token_step=s.first_token_step)
         self.completions.append(Completion(
@@ -865,8 +978,8 @@ class ServeEngine:
         self.slot_k[slot] = self._k_fill
         self.next_tok[slot] = 0
         if self.paged:
-            # pages return to the free list NOW: a request backfilled into
-            # this slot on the same step reuses them
+            # pages return to the owning shard's free list NOW: a request
+            # backfilled into this slot on the same step reuses them
             self.pool.free_slot(slot)
 
     def _next_request(self) -> Optional[Request]:
@@ -885,9 +998,10 @@ class ServeEngine:
             if nxt is None:
                 return
             free = [i for i, s in enumerate(self.slots) if s is None]
+            slot = free[0]
             if self.paged:
-                # a request whose LIFETIME need exceeds the whole pool can
-                # never run: grow (pool_grow) or fail fast
+                # a request whose LIFETIME need exceeds a whole pool shard
+                # can never run: grow (pool_grow) or fail fast
                 lifetime = self.pool.pages_for(self._sparse_tokens(
                     len(nxt.tokens) + nxt.max_new_tokens - 1))
                 if lifetime > self.pool.pages_per_shard - 1:
@@ -897,13 +1011,18 @@ class ServeEngine:
                             "its lifetime; each pool shard holds "
                             f"{self.pool.pages_per_shard - 1}")
                     self._grow_pool(lifetime + 1)
-                # over-committed pool: admit only with enough free pages for
-                # the prompt; otherwise grow, or hold until pages free
+                # over-committed pool: admit only into a shard with enough
+                # free pages for the prompt; otherwise grow, or hold until
+                # pages free
                 need = self.pool.pages_for(
                     self._sparse_tokens(len(nxt.tokens) - 1))
-                if need > self.pool.shard_free_pages(0) and self.pool_grow:
+                fits = [i for i in free if need <=
+                        self.pool.shard_free_pages(self.shard_of(i))]
+                if not fits and self.pool_grow:
                     self._grow_pool(self.pool.pages_per_shard + max(need, 1))
-                if need > self.pool.shard_free_pages(0):
+                    fits = [i for i in free if need <=
+                            self.pool.shard_free_pages(self.shard_of(i))]
+                if not fits:
                     # held admission: counted per engine step spent waiting
                     self.metrics.counter(
                         "serve_admission_holds_total",
@@ -913,7 +1032,7 @@ class ServeEngine:
                                         step=self.step_count, uid=nxt.uid,
                                         need_pages=need)
                     return
-            slot = free[0]
+                slot = fits[0]
             self.queue.remove(nxt)
             self._admit(nxt, slot)
 
@@ -934,24 +1053,34 @@ class ServeEngine:
                             + self.pool.pages_for(n_tokens))
             self.pool.ensure(slot, n_tokens)
 
-    def _grow_pool(self, min_pages: int) -> None:
-        """Grow the device pool to at least ``min_pages`` (typically 2x),
-        copying the old pages; page-table entries stay valid.  Capped at
-        the full reservation, where every admission fits."""
-        cap = self.n_slots * self.pool.pages_per_seq + 1
-        new = min(max(2 * self.pool.pages_per_shard, min_pages), cap)
+    def _grow_pool(self, min_pages_per_shard: int) -> None:
+        """Grow the device pool to at least ``min_pages_per_shard``
+        (typically 2x) pages PER SHARD, copying the old pages: new pages
+        append at the end of each shard's block, so local indices, and the
+        page table, stay valid.  Capped at the full reservation, where
+        every admission fits."""
+        cap = self.n_local * self.pool.pages_per_seq + 1
+        new = min(max(2 * self.pool.pages_per_shard, min_pages_per_shard),
+                  cap)
         if new <= self.pool.pages_per_shard:
             raise PagePoolExhausted(
                 f"page pool already at full reservation "
                 f"({self.pool.pages_per_shard} pages/shard) — cannot grow")
         extra = new - self.pool.pages_per_shard
+        dp = self.dp
         for side in self.state["pool"].values():
             for name, x in side.items():
-                pad = torch.zeros((x.shape[0], extra, *x.shape[2:]),
-                                  dtype=hc._bits(x).dtype, device=x.device)
-                side[name] = torch.cat([hc._bits(x), pad], dim=1).view(x.dtype)
+                b = hc._bits(x)
+                b = b.reshape(b.shape[0], dp, -1, *b.shape[2:])
+                pad = torch.zeros((b.shape[0], dp, extra, *b.shape[3:]),
+                                  dtype=b.dtype, device=b.device)
+                side[name] = torch.cat([b, pad], dim=2).reshape(
+                    x.shape[0], dp * new, *x.shape[2:]).view(x.dtype)
         old = self.pool.pages_per_shard
         self.pool.grow(new)
+        if self._layout is not None:
+            self._layout.pages_per_shard = new
+            self._layout.check_specs(self.state, self._state_specs)
         self.metrics.counter("page_pool_grows_total",
                              "device pool growth events").inc()
         if self.trace is not None:
@@ -986,17 +1115,19 @@ class ServeEngine:
             self._table_ver[width] = self.pool.version
         return buf
 
-    def _select_prefills(self) -> List[int]:
-        """Round-robin up to ``prefill_slots`` PREFILLING slots within the
-        per-step token budget; each selected slot advances one FULL chunk,
-        so chunk boundaries (and tokens) never depend on the schedule."""
-        cands = [i for i in range(self.n_slots)
+    def _select_prefills(self, shard: int) -> List[int]:
+        """Round-robin up to ``prefill_slots`` PREFILLING slots of
+        ``shard`` within its per-step token budget, from the shard's own
+        pointer; each selected slot advances one FULL chunk, so chunk
+        boundaries (and tokens) never depend on the schedule."""
+        lo = shard * self.n_local
+        cands = [i for i in range(lo, lo + self.n_local)
                  if self.slots[i] is not None
                  and self.slots[i].state == "prefilling"]
         if not cands:
             return []
-        order = sorted(cands, key=lambda j: (j - self._prefill_rr)
-                       % self.n_slots)
+        rr = self._prefill_rr[shard]
+        order = sorted(cands, key=lambda j: (j - rr) % self.n_slots)
         sel: List[int] = []
         spent = 0
         for i in order:
@@ -1005,39 +1136,52 @@ class ServeEngine:
             s = self.slots[i]
             sel.append(i)
             spent += min(len(s.req.tokens) - s.n_prefilled, self.prefill_chunk)
-        self._prefill_rr = (sel[-1] + 1) % self.n_slots
+        self._prefill_rr[shard] = (sel[-1] + 1) % self.n_slots
         return sel
 
     def _advance_prefills(self) -> None:
-        """Advance the selected in-flight prefills by one chunk EACH in ONE
-        batched chunk dispatch.  The lane count is a power of two (dead
-        lanes park at slot = n_slots); full chunks share one width."""
-        sel = self._select_prefills()
-        if not sel:
+        """Advance every shard's selected in-flight prefills by one chunk
+        EACH in ONE batched chunk dispatch.  The lane axis is laid out
+        ``[dp, P_local]``: shard ``s``'s block holds only its own slots,
+        as shard-local lanes.  The per-shard lane count is a power of two
+        (dead lanes park at slot = n_local, off the shard); full chunks
+        share one width."""
+        sels = [self._select_prefills(s) for s in range(self.dp)]
+        widest = max(len(s) for s in sels)
+        if widest == 0:
             return
-        n_lanes = _pow2(len(sel))
+        Pl = _pow2(widest)
+        n_lanes = self.dp * Pl
         lens, pads = {}, []
-        for i in sel:
-            s = self.slots[i]
-            rem = len(s.req.tokens) - s.n_prefilled
-            lens[i] = min(rem, self.prefill_chunk)
-            pads.append(self.prefill_chunk if rem >= self.prefill_chunk
-                        else _pow2(lens[i]))
+        for sel in sels:
+            for i in sel:
+                s = self.slots[i]
+                rem = len(s.req.tokens) - s.n_prefilled
+                lens[i] = min(rem, self.prefill_chunk)
+                pads.append(self.prefill_chunk if rem >= self.prefill_chunk
+                            else _pow2(lens[i]))
         C = max(pads)
         toks = np.zeros((n_lanes, C), np.int64)
-        slot_v = np.full((n_lanes,), self.n_slots, np.int64)
+        slot_v = np.full((n_lanes,), self.n_local, np.int64)  # parked
         start_v = np.zeros((n_lanes,), np.int64)
         tlen_v = np.ones((n_lanes,), np.int64)
         k_v = np.full((n_lanes,), self._k_fill, np.int64)
-        for lane, i in enumerate(sel):
-            s = self.slots[i]
-            st0, t = s.n_prefilled, lens[i]
-            toks[lane, :t] = np.asarray(s.req.tokens[st0:st0 + t], np.int64)
-            slot_v[lane], start_v[lane], tlen_v[lane] = i, st0, t
-            k_v[lane] = self.slot_k[i]
+        picks = []                                  # (lane, global slot)
+        for sh, sel in enumerate(sels):
+            for j, i in enumerate(sel):
+                lane = sh * Pl + j
+                s = self.slots[i]
+                st0, t = s.n_prefilled, lens[i]
+                toks[lane, :t] = np.asarray(s.req.tokens[st0:st0 + t],
+                                            np.int64)
+                slot_v[lane] = i - sh * self.n_local
+                start_v[lane], tlen_v[lane] = st0, t
+                k_v[lane] = self.slot_k[i]
+                picks.append((lane, i))
+        sel = [i for _, i in picks]
         width = prefix = None
         if self.paged:
-            for lane, i in enumerate(sel):
+            for lane, i in picks:
                 # map pages for the tokens this chunk winnows; overshoot
                 # past them lands on the trash page
                 self._ensure_pages(i, self._sparse_tokens(
@@ -1058,7 +1202,7 @@ class ServeEngine:
             self.trace.emit("chunk_dispatch", step=self.step_count,
                             lanes=len(sel), slots=sel, tokens=n_tok)
         fins = []
-        for lane, i in enumerate(sel):
+        for lane, i in picks:
             s = self.slots[i]
             s.n_prefilled += lens[i]
             if s.n_prefilled == len(s.req.tokens):      # prompt complete
@@ -1156,6 +1300,14 @@ class ServeEngine:
         return sum(1 for i in range(self.cfg.n_layers)
                    if self.cfg.layer_kind(i) == "attn")
 
+    def _slab_reserved(self, n: int) -> int:
+        """The analytic slab bytes of ``n`` slots (linear in ``n``)."""
+        L = self._n_attn()
+        if self.swan is None:
+            return L * hc.dense_cache_bytes(self.cfg, n, self.max_seq)
+        return L * (hc.cache_bytes(self.cfg, self.swan, n, self.max_seq)
+                    + n * self.swan.buffer * 4)
+
     def _slab_check(self) -> int:
         """The slab's reserved bytes (the analytic layout), checked against
         the bytes of the resident state: the slab commits the worst case
@@ -1164,14 +1316,7 @@ class ServeEngine:
         if self.api.init_paged_state is None:
             return serve_cache_report(self.cfg, self.swan, self.n_slots,
                                       self.max_seq)["bytes"]
-        L = self._n_attn()
-        if self.swan is None:
-            reserved = L * hc.dense_cache_bytes(self.cfg, self.n_slots,
-                                                self.max_seq)
-        else:
-            reserved = L * (hc.cache_bytes(self.cfg, self.swan, self.n_slots,
-                                           self.max_seq)
-                            + self.n_slots * self.swan.buffer * 4)
+        reserved = self._slab_reserved(self.n_slots)
         live = sum(x.numel() * x.element_size() for x in _leaves(self.state))
         if reserved != live:
             raise RuntimeError(f"slab reserved {reserved} != resident {live}")
@@ -1181,27 +1326,41 @@ class ServeEngine:
         """The one source of cache byte accounting, read by
         ``cache_report()`` and the per-step ``kv_cache_*`` gauges:
         ``reserved_bytes`` / ``live_bytes`` (+ ``page_table_shipped_bytes``
-        paged), with a one-entry ``shards`` breakdown (the reference's
-        single-device layout; None for a recurrent family, whose bytes are
-        the analytic Eq. 1 report's).  Host arithmetic only."""
+        paged), with a ``shards`` breakdown, one entry per mesh shard,
+        whose entries sum exactly to the totals (None for a recurrent
+        family, whose bytes are the analytic Eq. 1 report's).  Host
+        arithmetic only."""
         if self.api.init_paged_state is None:
             b = self._slab_bytes
             return {"reserved_bytes": b, "live_bytes": b, "shards": None}
         if not self.paged:
+            # the slab layout is linear in the batch axis, so each shard
+            # carries exactly its slots' share
             reserved = self._slab_bytes
+            sh = self._slab_reserved(self.n_local)
             return {"reserved_bytes": reserved, "live_bytes": reserved,
-                    "shards": [{"reserved_bytes": reserved,
-                                "live_bytes": reserved}]}
+                    "shards": [{"reserved_bytes": sh, "live_bytes": sh}
+                               for _ in range(self.dp)]}
         page_b = pc.page_bytes(self.cfg, self.swan, self.pool.page_size)
-        shipped = self.page_table_shipped_bytes()
-        overhead = pc.ring_bytes(self.cfg, self.swan, self.n_slots) + shipped
-        reserved = self.pool.reserved_bytes(page_b) + overhead
-        live = self.pool.live_bytes(page_b) + overhead
-        return {"reserved_bytes": reserved, "live_bytes": live,
-                "page_table_shipped_bytes": shipped,
-                "shards": [{"reserved_bytes": reserved, "live_bytes": live,
-                            "page_table_shipped_bytes": shipped,
-                            "live_pages": self.pool.live_pages}]}
+        bucket = self._decode_bucket()
+        overhead = (pc.ring_bytes(self.cfg, self.swan, self.n_slots)
+                    + self.n_slots * bucket * 4)
+        # per shard: its block of the pool, its slots' rings and its rows
+        # of the shipped table prefix (rings and table are linear in the
+        # batch axis, page blocks equal), so the entries sum to the totals
+        sh_over = (pc.ring_bytes(self.cfg, self.swan, self.n_local)
+                   + self.n_local * bucket * 4)
+        return {
+            "reserved_bytes": self.pool.reserved_bytes(page_b) + overhead,
+            "live_bytes": self.pool.live_bytes(page_b) + overhead,
+            "page_table_shipped_bytes": self.n_slots * bucket * 4,
+            "shards": [
+                {"reserved_bytes":
+                 self.pool.shard_reserved_bytes(s, page_b) + sh_over,
+                 "live_bytes": self.pool.shard_live_bytes(s, page_b) + sh_over,
+                 "page_table_shipped_bytes": self.n_local * bucket * 4,
+                 "live_pages": self.pool.shard_live_pages(s)}
+                for s in range(self.dp)]}
 
     def cache_report(self) -> Dict[str, Any]:
         """Cache accounting across all slots in the config's dtypes:
@@ -1240,9 +1399,9 @@ class ServeEngine:
         return rep
 
     def _sample_gauges(self) -> None:
-        """End-of-step gauges, the reference's with its one shard (shard
-        0).  Skipped under the null registry, so ``metrics=False`` pays
-        nothing per step."""
+        """End-of-step gauges, the reference's, the ``shard_*`` ones
+        labelled ``shard=s`` for each mesh shard.  Skipped under the null
+        registry, so ``metrics=False`` pays nothing per step."""
         m = self.metrics
         if not m.enabled:
             return
@@ -1269,29 +1428,38 @@ class ServeEngine:
                         self.pool.live_pages)
             m.gauge("page_pool_free_pages",
                     "pages on the free lists").set(self.pool.free_pages)
-        m.gauge("shard_lanes_active",
-                "decoding lanes on this shard", shard=0).set(
-                    sum(1 for s in self.slots
-                        if s is not None and s.state == "decoding"))
-        m.gauge("shard_lanes_prefilling",
-                "prefilling lanes on this shard", shard=0).set(
-                    sum(1 for s in self.slots
-                        if s is not None and s.state == "prefilling"))
-        if acct["shards"] is not None:
-            e = acct["shards"][0]
-            m.gauge("shard_kv_cache_reserved_bytes",
-                    "cache bytes physically allocated on this shard",
-                    shard=0).set(e["reserved_bytes"])
-            m.gauge("shard_kv_cache_live_bytes",
-                    "live cache bytes on this shard", shard=0).set(
-                        e["live_bytes"])
-        if self.paged:
-            m.gauge("shard_page_pool_live_pages",
-                    "live pages on this shard", shard=0).set(
-                        self.pool.shard_live_pages(0))
-            m.gauge("shard_page_pool_free_pages",
-                    "free pages on this shard", shard=0).set(
-                        self.pool.shard_free_pages(0))
+        for sh in range(self.dp):
+            lo = sh * self.n_local
+            lanes = self.slots[lo:lo + self.n_local]
+            m.gauge("shard_lanes_active",
+                    "decoding lanes on this shard", shard=sh).set(
+                        sum(1 for s in lanes
+                            if s is not None and s.state == "decoding"))
+            m.gauge("shard_lanes_prefilling",
+                    "prefilling lanes on this shard", shard=sh).set(
+                        sum(1 for s in lanes
+                            if s is not None and s.state == "prefilling"))
+            if acct["shards"] is not None:
+                e = acct["shards"][sh]
+                m.gauge("shard_kv_cache_reserved_bytes",
+                        "cache bytes physically allocated on this shard",
+                        shard=sh).set(e["reserved_bytes"])
+                m.gauge("shard_kv_cache_live_bytes",
+                        "live cache bytes on this shard", shard=sh).set(
+                            e["live_bytes"])
+            if self.paged:
+                m.gauge("shard_page_pool_live_pages",
+                        "live pages on this shard", shard=sh).set(
+                            self.pool.shard_live_pages(sh))
+                m.gauge("shard_page_pool_free_pages",
+                        "free pages on this shard", shard=sh).set(
+                            self.pool.shard_free_pages(sh))
+
+
+def _tree_map_specs(fn, specs):
+    if isinstance(specs, dict):
+        return {k: _tree_map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
 
 
 def _leaves(tree) -> List[torch.Tensor]:

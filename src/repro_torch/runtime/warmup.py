@@ -1,8 +1,8 @@
 """Graph-family warmup for :class:`repro_torch.runtime.serve_engine.
 ServeEngine`.
 
-Port of ``repro.runtime.warmup`` without a mesh (dp = 1).  Under real
-traffic the first dispatch of each
+Port of ``repro.runtime.warmup``.  Under real traffic the first dispatch
+of each
 (prompt-chunk x lane x slab-read-prefix / page-table-prefix) shape bucket
 pays a CUDA-graph capture in the middle of serving (a warm run and a
 capture of a whole model step).  Every bucket is enumerable from the
@@ -17,8 +17,9 @@ operands the scheduling contract already makes side-effect-free
 
 * decode with every lane at ``pos = -1`` (rings untouched, slab and dense
   writes rewrite their own rows, paged writes land on the trash page);
-* chunk with every lane parked at ``slot = n_slots``, as
-  ``_advance_prefills`` pads unused lanes;
+* chunk with every lane parked off its shard (``slot = n_local``;
+  ``n_slots`` at dp = 1), as ``_advance_prefills`` pads unused lanes;
+  under a mesh the lane count is ``dp`` times each per-shard bucket;
 * monolithic prefill into the shared single-slot transient, then the
   insert parked at ``slot = n_slots`` (ring and slab writes drop, pool
   writes land on the trash page).
@@ -55,7 +56,7 @@ class WarmupItem:
     request.  ``detail`` is the human-readable bucket key of the report."""
     kind: str                           # decode|chunk|prefill|fetch|sample
     page_bucket: Optional[int] = None   # shipped table width (paged)
-    n_lanes: int = 0                    # chunk lane width
+    n_lanes: int = 0                    # chunk lane width (dp * Pl)
     chunk: int = 0                      # chunk token width C
     prefix: Optional[int] = None        # slab read-prefix bucket
     pad_len: int = 0                    # monolithic prompt bucket
@@ -129,7 +130,8 @@ def executable_family(eng, max_prompt_len: Optional[int] = None
     exp_chunk: Dict[str, int] = {}
     n_prefill = n_insert = n_insert_paged = 0
     if eng.prefill_chunk is not None:
-        for lanes in _pow2_buckets(_pow2(eng.prefill_slots)):
+        for pl in _pow2_buckets(_pow2(eng.prefill_slots)):
+            lanes = eng.dp * pl
             for c in _pow2_buckets(eng.prefill_chunk):
                 if eng.paged:
                     for w in _pow2_buckets(eng.pool.pages_per_seq):

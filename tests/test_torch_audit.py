@@ -278,7 +278,7 @@ def test_run_audit_on_the_cpu():
                  "engine/slab-kernel", "engine/paged-kernel"):
         assert by[name].status == "skip" and by[name].detail
     assert "CUDA" in by["graphs/slab"].detail
-    assert by["engine/paged-dp2"].status == "skip"
+    assert by["engine/paged-dp2"].status == "pass"
     # the dispatch bodies, the steps and the detector run for real
     for name in ("host-transfers/slab/decode", "host-transfers/paged/chunk",
                  "collectives/paged/decode", "host-sync/slab",
