@@ -237,6 +237,30 @@ Phases, each of which must pass (any failure exits non-zero):
               logit error finite, Table 1's full-retention row within 1e-3
               of dense, the decode kernel launched in the buffered benches
               and not at ``buffer=0`` (counts zeroed before each bench).
+12. parallel — training across devices and the dry-run, which run no
+              kernel: llama3-8b's dense block at full width (bf16, 8
+              layers as 4 stages of ``pipeline_apply`` over a one-card
+              'pipe' mesh, batch 8 x 512 in 4 microbatches), forward and
+              backward, against the plain stacked apply over the same
+              microbatches (forward and every gradient leaf bit for bit;
+              a control with its last microbatch cut from the loss must
+              fail that) and the whole-batch apply (max |diff| / max |y|
+              <= 5e-2), both timed; ``dp_int8_allreduce`` of its
+              gradients over a one-rank NCCL group (the identity round,
+              each chunk within max|g|/127), timed beside an f32
+              ``all_reduce`` of the tree, the group destroyed after; then
+              ``repro_torch.launch.dryrun`` of llama3-8b decode_32k with
+              SWAN and train_4k on 16x16 and llama3-405b decode_32k with
+              SWAN on 2x16x16 at full depth, and llama3-8b train_4k with
+              ``--sample-depth``, one CPU process each, started before
+              the train phase's quality benches (after the last phase
+              whose host times are read; with this phase when it runs
+              alone): each ``status ok`` with the argument bytes of the
+              specs' shard arithmetic and the flops and collective bytes
+              (1 %) and bottleneck stated for the torch release
+              (``DRYRUN_STATED``), the sampled cell within 1 % (flops)
+              and 2 % (collective bytes) of its full-depth trace with the
+              same bottleneck, the ``dryrun_table`` rows printed.
 
 After the train phase the port's bench harness folds the bench and train
 phases' artifacts into ``build/bench_out/BENCH_SUMMARY_torch.json``
@@ -3981,7 +4005,9 @@ def quality_phase(kernels):
     return dict(total)
 
 
-def train_phase(kernels, smi):
+def train_phase(kernels, smi, before_quality=None):
+    """B1 at the quality benches' shapes, the full-width training and the
+    quality benches; ``before_quality()`` runs between the last two."""
     t_phase = time.perf_counter()
     log(f"[train] swan_decode vs plain at the quality benches' shapes (B={TB} "
         f"Kv={TKV} G={TG} dh={TDH} b={TBUF}, f32 q; f32 and int8 values; k in "
@@ -3991,6 +4017,8 @@ def train_phase(kernels, smi):
     log("[train] full-width training (llama3-8b widths, 4 layers), with a "
         "checkpoint resume")
     train_fullwidth(smi)
+    if before_quality is not None:
+        before_quality()
     log("[train] the tiny LM trained on the card and scored by the six "
         "quality benches")
     counts = quality_phase(kernels)
@@ -4005,6 +4033,367 @@ TENSOR_CORE_INSTANCES = ("flash_prefill_bf16_kernel", "swan_chunk_mma_kernel",
 # every instance of these spills nothing either (B1/B2's splits and merge)
 NO_SPILL_INSTANCES = TENSOR_CORE_INSTANCES + ("swan_decode_kernel",
                                               "swan_decode_merge_kernel")
+
+
+# the parallel phase: the pipeline at llama3-8b's widths, and the dry-run
+PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 8, 4, 4, 8, 512
+DRYRUN_CELLS = (("llama3-8b", "decode_32k", False, True),
+                ("llama3-8b", "train_4k", False, False),
+                ("llama3-405b", "decode_32k", True, True))
+# traced again with --sample-depth (0 and 1 layer, extended to 32) and held
+# to its full-depth trace: the extension behind the --all table
+DRYRUN_SAMPLED = ("llama3-8b", "train_4k", False, False)
+# each cell's flops and collective bytes per device and its bottleneck at
+# full depth, by the torch release that traced them: DTensor's propagation
+# differs between releases (in the train step 2.11 also gathers an axis
+# for an ``_unsafe_view`` and runs ``index_put`` replicated, where 2.13
+# has strategies, and counts 3.2x the flops and 0.58x the collective
+# bytes), so a new release must be stated here before it passes
+DRYRUN_STATED = {
+    "2.11": {DRYRUN_CELLS[0]: (11723052048.0, 119963648.0, "memory"),
+             DRYRUN_CELLS[1]: (958333264880576.0, 2057631792976.0,
+                               "memory"),
+             DRYRUN_CELLS[2]: (234690965376.0, 2408567296.0, "memory")},
+    "2.13": {DRYRUN_CELLS[0]: (11723052048.0, 119963648.0, "memory"),
+             DRYRUN_CELLS[1]: (295272193336256.0, 3552852425548.0,
+                               "collective"),
+             DRYRUN_CELLS[2]: (232683997056.0, 2298767872.0, "memory")},
+}
+
+
+def dryrun_start():
+    """The three dry-run cells at full depth and ``DRYRUN_SAMPLED`` at
+    sampled depth, one CPU process each (the fake process group lives in
+    its own process), started together, one thread each, at a lower
+    priority: DTensor's dispatch costs milliseconds an op, so a full-depth
+    cell takes tens of seconds of host time.  Returns (the processes,
+    their output directory, the sampled cell's directory); all go when
+    the script exits."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    sampled_dir = out_dir / "sampled"
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                           / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = []
+    for cell, extra in ([(c, []) for c in DRYRUN_CELLS]
+                        + [(DRYRUN_SAMPLED, ["--sample-depth"])]):
+        arch, shape, mp, sw = cell
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out",
+               str(sampled_dir if extra else out_dir)] + extra
+        cmd += ["--multi-pod"] * mp + ["--swan"] * sw
+        procs.append(subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, preexec_fn=lambda: os.nice(10)))
+
+    def stop():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    atexit.register(stop)
+    return procs, out_dir, sampled_dir
+
+
+def spec_argument_bytes(arch, shape_name, multi_pod, swan_on):
+    """Per-device argument bytes of a dry-run cell from the specs alone:
+    every argument's meta tree laid out by the port's specs over the
+    production mesh, its shards' bytes summed (no DTensor, no process
+    group)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, OptimizerConfig, get_config
+    from repro_torch.launch.dryrun import _n_proj_layers, default_swan
+    from repro_torch.launch.io import decode_input_specs, train_input_specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.sharding.api import P, local_shape
+    from repro_torch.sharding.serve_specs import (batch_pspecs, sanitize_tree,
+                                                  serve_state_pspecs)
+    from repro_torch.sharding.specs import params_pspecs
+    from repro_torch.tree import leaves
+
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    api = get_model(cfg)
+
+    def nbytes(tree, specs):
+        return sum(int(np.prod(local_shape(x.shape, s, mesh)))
+                   * x.element_size()
+                   for x, s in zip(leaves(tree), leaves(specs)))
+    params = api.init_params(cfg, 0, "meta")
+    p_specs = sanitize_tree(params_pspecs(params, cfg, mesh), params, mesh)
+    total = nbytes(params, p_specs)
+    if shape.kind == "train":
+        opt = init_opt_state(params, OptimizerConfig())
+        total += nbytes(opt, {"m": p_specs, "v": p_specs, "step": P()})
+        batch = train_input_specs(cfg, shape.global_batch, shape.seq_len)
+        return total + nbytes(batch, batch_pspecs(batch, mesh))
+    swan = default_swan(cfg) if swan_on else None
+    state = api.init_serve_state(cfg, swan, shape.global_batch,
+                                 shape.seq_len + cfg.n_prefix_tokens, "meta")
+    total += nbytes(state, serve_state_pspecs(state, mesh))
+    tok = decode_input_specs(cfg, shape.global_batch)
+    total += nbytes(tok, batch_pspecs(tok, mesh)) + 4      # + the int32 pos
+    if swan_on:
+        total += (_n_proj_layers(cfg) * cfg.n_kv_heads * cfg.d_head
+                  * cfg.d_head * 4)                        # p_qk, replicated
+    return total
+
+
+def pipeline_check(smi):
+    """llama3-8b's dense block (``transformer._layer_forward``) at full
+    width, bf16: 8 layers as 4 stages over a one-card 'pipe' mesh, batch
+    8 x 512, 4 microbatches, forward and backward, against the plain
+    stacked apply over the same microbatches and the whole-batch apply.
+    Returns the gradients (a tree of [L, ...] leaves) for the int8
+    all-reduce."""
+    import torch
+    from repro_torch.benchmarks.common import time_ms
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.pipeline_parallel import (pipeline_apply,
+                                                       split_stages)
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    cfg = get_config("llama3-8b").replace(n_layers=PIPE_LAYERS)
+    layers = tfm.init_lm_params(cfg, 0, "cuda")["layers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((PIPE_BATCH, PIPE_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    mb = PIPE_BATCH // PIPE_MICRO
+    pos = torch.arange(PIPE_SEQ, device="cuda")[None].expand(mb, PIPE_SEQ)
+    mesh = make_mesh((PIPE_STAGES,), ("pipe",), ["cuda:0"] * PIPE_STAGES)
+    log(f"[parallel] pipeline: llama3-8b's dense block (d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, {cfg.param_dtype}), {PIPE_LAYERS} layers as "
+        f"{PIPE_STAGES} stages on {mesh.shape}, batch {PIPE_BATCH} x "
+        f"{PIPE_SEQ}, {PIPE_MICRO} microbatches, forward and backward")
+
+    def layer_fn(lp, xm):
+        return tfm._layer_forward(lp, cfg, xm, pos[:xm.shape[0]])[0]
+
+    def fresh():
+        return unflatten(layers, [t.detach().clone().requires_grad_()
+                                  for t in leaves(layers)])
+
+    def run_pipe(p):
+        y = pipeline_apply(layer_fn, split_stages(p, PIPE_STAGES), x,
+                           PIPE_MICRO, mesh)
+        y.float().square().mean().backward()
+        return y
+
+    def run_plain(p, drop_last=False):
+        outs = []
+        for m in range(PIPE_MICRO):
+            xm = x[m * mb:(m + 1) * mb]
+            for i in range(PIPE_LAYERS):
+                xm = layer_fn(tree_map(lambda t: t[i], p), xm)
+            outs.append(xm)
+        if drop_last:       # the control: its values, but no gradient
+            outs[-1] = outs[-1].detach()
+        y = torch.cat(outs)
+        y.float().square().mean().backward()
+        return y
+
+    def compare(p_a, y_a, p_b, y_b):
+        """(forward equal, every gradient leaf equal, max |diff| of each)"""
+        g_diff = max((a.grad.float() - b.grad.float()).abs().max().item()
+                     for a, b in zip(leaves(p_a), leaves(p_b)))
+        return (torch.equal(y_a, y_b),
+                all(torch.equal(a.grad, b.grad)
+                    for a, b in zip(leaves(p_a), leaves(p_b))),
+                (y_a.float() - y_b.float()).abs().max().item(), g_diff)
+
+    p_pipe, p_plain, p_ctl = fresh(), fresh(), fresh()
+    y_pipe = run_pipe(p_pipe)
+    y_plain = run_plain(p_plain)
+    y_ctl = run_plain(p_ctl, drop_last=True)
+    torch.cuda.synchronize()
+    fwd_equal, g_equal, fwd_diff, g_diff = compare(p_pipe, y_pipe, p_plain,
+                                                   y_plain)
+    log(f"  pipelined vs plain stacked apply over the same microbatches: "
+        f"forward {'bit for bit' if fwd_equal else f'max |diff| {fwd_diff:.3e}'}"
+        f", gradients {'bit for bit' if g_equal else f'max |diff| {g_diff:.3e}'}"
+        " (both required)")
+    check(fwd_equal and g_equal, f"pipeline vs plain: forward max |diff| "
+          f"{fwd_diff}, gradients {g_diff}; both must be bit for bit")
+    # the control: the plain apply with its last microbatch cut from the
+    # loss (the same forward) must fail the gradient check
+    c_fwd, c_grad, _, c_diff = compare(p_pipe, y_pipe, p_ctl, y_ctl)
+    g_max = max(a.grad.float().abs().max().item() for a in leaves(p_plain))
+    log(f"  control (last microbatch cut from the loss): forward "
+        f"{'bit for bit' if c_fwd else 'differs'}, gradients "
+        f"{'bit for bit' if c_grad else f'max |diff| {c_diff:.3e}'} "
+        f"(max |g| {g_max:.3e}): must fail the gradient check")
+    check(c_fwd and not c_grad, "the control's gradients pass the check")
+    del p_ctl, y_ctl
+    with torch.no_grad():
+        whole = x
+        posw = torch.arange(PIPE_SEQ, device="cuda")[None].expand(
+            PIPE_BATCH, PIPE_SEQ)
+        for i in range(PIPE_LAYERS):
+            whole = tfm._layer_forward(tree_map(lambda t: t[i], layers), cfg,
+                                       whole, posw)[0]
+        rel = ((whole.float() - y_pipe.float()).abs().max()
+               / whole.float().abs().max()).item()
+    log(f"  pipelined vs the whole-batch apply: max |diff| / max |y| = "
+        f"{rel:.3e} (bound 5e-2)")
+    check(rel <= 5e-2, f"pipeline vs whole batch: {rel}")
+    ms_pipe = time_ms(lambda: run_pipe(fresh()), 3)
+    ms_plain = time_ms(lambda: run_plain(fresh()), 3)
+    log(f"  {smi}: forward + backward {ms_pipe:.1f} ms pipelined "
+        f"({PIPE_MICRO + PIPE_STAGES - 1} ticks x {PIPE_STAGES} stages on one "
+        f"card) vs {ms_plain:.1f} ms plain (CUDA events, median of 3)")
+    grads = unflatten(layers, [t.grad for t in leaves(p_plain)])
+    del p_pipe, y_pipe, y_plain, whole
+    return grads
+
+
+def int8_allreduce_check(grads, smi):
+    """``dp_int8_allreduce`` of the pipeline's gradients over a one-rank
+    NCCL group: the identity round (each leaf equal to its quantise/
+    dequantise round, within max|g|/127 of its chunk), timed beside an f32
+    ``all_reduce`` of the same tree; the group is destroyed after."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.benchmarks.common import time_ms
+    from repro_torch.runtime.grad_compress import (CHUNK, compress_gradients,
+                                                   dp_int8_allreduce)
+    from repro_torch.tree import leaves
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        dm = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        red = dp_int8_allreduce(grads, "data", dm)
+        one = compress_gradients(grads)
+        worst = 0.0
+        for g, r, o in zip(leaves(grads), leaves(red), leaves(one)):
+            check(torch.equal(r, o), "the one-rank int8 all-reduce is not "
+                  "the identity quantise/dequantise round")
+            flat = g.float().reshape(-1)
+            pad = (-flat.numel()) % CHUNK
+            chunks = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, CHUNK)
+            err = torch.nn.functional.pad(
+                (r.float() - g.float()).reshape(-1), (0, pad)).reshape(
+                    -1, CHUNK).abs().amax(1)
+            bound = chunks.abs().amax(1) / 127
+            check(bool((err <= bound).all()), "an int8 round is outside "
+                  "max|g|/127 of its chunk")
+            worst = max(worst, (err / bound.clamp(min=1e-30)).max().item())
+        n = sum(g.numel() for g in leaves(grads))
+        f32 = [g.float() for g in leaves(grads)]
+        ms_int8 = time_ms(lambda: dp_int8_allreduce(grads, "data", dm), 5)
+        ms_f32 = time_ms(lambda: [dist.all_reduce(t) for t in f32], 5)
+        log(f"  dp_int8_allreduce over a one-rank NCCL group, {n} gradient "
+            f"values in {len(f32)} leaves: the identity round, worst error "
+            f"{worst:.3f} of its chunk's max|g|/127; {smi}: {ms_int8:.1f} ms "
+            f"for the tree vs {ms_f32:.1f} ms for an f32 all_reduce of it "
+            "(CUDA events, median of 5)")
+        del f32, red, one
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_finish(procs, out_dir: Path, sampled_dir: Path):
+    """Wait for the dry-run cells; each must be ``status ok`` with the
+    specs' argument bytes and the flops and collective bytes (within 1 %)
+    and bottleneck stated for this torch release in ``DRYRUN_STATED``; the
+    sampled cell must match its full-depth trace (collective bytes within
+    2 %, flops within 1 %, the same bottleneck); print the
+    ``dryrun_table`` rows."""
+    import torch
+    from repro_torch.analysis.report import dryrun_table, load_records
+    t0 = time.perf_counter()
+    outs = [p.communicate(timeout=900)[0] for p in procs]
+    log(f"  the dry-run's processes done {time.perf_counter() - t0:.1f} s "
+        "into their wait")
+    recs = load_records(str(out_dir))
+    sampled = load_records(str(sampled_dir))
+    check(len(recs) == len(DRYRUN_CELLS) and len(sampled) == 1,
+          f"{len(recs)} + {len(sampled)} dry-run records: "
+          + " | ".join(o[-500:] for o in outs))
+    for cell, p, o in zip(DRYRUN_CELLS + (DRYRUN_SAMPLED,), procs, outs):
+        check(p.returncode == 0 or any(r["status"] != "ok"
+                                       for r in recs + sampled),
+              f"dry-run {cell}: {o[-1000:]}")
+    release = ".".join(torch.__version__.split(".")[:2])
+    stated = DRYRUN_STATED.get(release)
+    check(stated is not None, f"the dry-run's counts are stated for torch "
+          f"{sorted(DRYRUN_STATED)}, not {torch.__version__}")
+    full = {}
+    for r in recs + sampled:
+        check(r["status"] == "ok", f"dry-run {r['arch']} {r['shape']}: "
+              f"{r.get('error')} {r.get('trace', '')[-1500:]}")
+    for r in recs:
+        cell = (r["arch"], r["shape"], r["multi_pod"], r["swan"])
+        full[cell] = r
+        want = spec_argument_bytes(*cell)
+        check(r["memory"]["argument_bytes"] == want,
+              f"dry-run {cell}: argument bytes "
+              f"{r['memory']['argument_bytes']} != the specs' {want}")
+        flops, coll = r["step_cost"]["flops"], r["step_cost"][
+            "collective_bytes"]
+        bn = r["roofline"]["bottleneck"]
+        want_flops, want_coll, want_bn = stated[cell]
+        log(f"  dry-run {r['arch']} {r['shape']} "
+            f"{'2x16x16' if r['multi_pod'] else '16x16'}"
+            f"{' swan' if r['swan'] else ''}: ok in {r['trace_s']} s, "
+            f"argument bytes {r['memory']['argument_bytes']} = the specs', "
+            f"flops {flops!r}, collective bytes {coll!r}, bottleneck {bn} "
+            f"(stated for torch {release}: {want_flops!r}, {want_coll!r}, "
+            f"{want_bn}), replicated ops {r['replicated_ops']}")
+        check(abs(flops - want_flops) <= 0.01 * want_flops
+              and abs(coll - want_coll) <= 0.01 * want_coll
+              and bn == want_bn,
+              f"dry-run {cell}: flops {flops}, collective bytes {coll}, "
+              f"bottleneck {bn}; stated for torch {release}: {want_flops}, "
+              f"{want_coll}, {want_bn}")
+    samp, f = sampled[0], full[DRYRUN_SAMPLED]
+    ratio = {k: samp["step_cost"][k] / f["step_cost"][k]
+             for k in ("flops", "hbm_bytes", "collective_bytes")}
+    log(f"  dry-run {DRYRUN_SAMPLED[0]} {DRYRUN_SAMPLED[1]} --sample-depth "
+        f"(traced at 0 and 1 layer in {samp['trace_s']} s) / full depth: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ratio.items())
+        + f", bottleneck {samp['roofline']['bottleneck']}")
+    check(samp["memory"]["argument_bytes"] == f["memory"]["argument_bytes"]
+          and abs(ratio["flops"] - 1) <= 0.01
+          and abs(ratio["collective_bytes"] - 1) <= 0.02
+          and samp["roofline"]["bottleneck"] == f["roofline"]["bottleneck"],
+          f"the sampled dry-run departs from its full-depth trace: {ratio}")
+    for line in dryrun_table(recs).splitlines():
+        log("  " + line)
+
+
+def parallel_phase(smi, dry=None):
+    """The pipeline, the int8 all-reduce and the dry-run (module
+    docstring).  ``dry`` is ``dryrun_start``'s, started before the quality
+    benches, after the last phase whose host times are read (the
+    full-width training's ms/step); without it (``--only parallel``) the
+    processes start here, beside the pipeline and the all-reduce, which
+    are timed on the device (CUDA events of device-bound work)."""
+    dry = dry or dryrun_start()
+    grads = pipeline_check(smi)
+    int8_allreduce_check(grads, smi)
+    del grads
+    gc.collect()
+    dryrun_finish(*dry)
 
 
 def ptxas_resources(log_text):
@@ -4111,7 +4500,7 @@ KERNEL_ROWS = {   # name -> (source, the TPU kernel it replaces)
 PHASES = ("kernels", "bench", "serve", "exact", "engine", "graphs",
           "sharded", "audit",
           "dense", "moe", "vlm", "encdec", "hybrid", "ssm", "chunk_exact",
-          "obs", "train")
+          "obs", "train", "parallel")
 
 
 def bench_summary():
@@ -4326,9 +4715,18 @@ def main(argv=None) -> int:
         if "graphs" in phases:
             log_on_off(on_off, smi)
         lap("obs")
+    dry = []            # the dry-run's processes, once started
     if "train" in phases:
-        record("quality", train_phase(KERNELS, smi))
+        record("quality", train_phase(
+            KERNELS, smi, before_quality=(lambda: dry.append(dryrun_start()))
+            if "parallel" in phases else None))
         lap("train")
+    if "parallel" in phases:
+        mark[0] = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        parallel_phase(smi, dry[0] if dry else None)
+        lap("parallel")
     if {"bench", "train"} & set(phases):
         bench_summary()
     log(f"[done] {time.perf_counter() - t_start:.1f} s; by phase (s): {secs}")

@@ -33,6 +33,33 @@ reference's rules:
   * ``host_transfers`` — ``aten._local_scalar_dense`` (``.item()``,
     ``int()`` of a tensor) and every copy from a device tensor to the CPU.
 
+A step over DTensors (the dry-run, ``launch.dryrun``) is counted per
+device: the mode sees each op once, at the DTensor level and at global
+shapes, and counts it over the local shards of its operands and results
+(rank 0's): bytes and element counts from each DTensor's
+``_local_tensor``, and a matmul's flops as its global flops times the
+result's local share, divided by the size of every mesh axis over which
+the result is ``Partial`` (a contraction split over that axis).  The
+collectives that DTensor issues to redistribute an operand run inside
+that op's dispatch, out of the mode's sight, so while a mode is active
+every ``redistribute_local_tensor`` call of DTensor is observed and the
+c10d collectives it dispatches are counted, each with its result bytes,
+as above (an all-gather's gathered tensor, an all-reduce's tensor).
+Explicit ``redistribute`` calls (the activation hooks) go the same way.
+A fresh result is one whose storage no written operand shares, compared
+by storage identity, which holds for real, fake and meta tensors alike.
+
+``CostMode(track_memory=True)`` also keeps the peak of the live bytes the
+step allocated (``StepCosts.peak_live_bytes``, the dry-run record's
+``temp_bytes``): every fresh result's storage counts from the op that
+made it until the last tensor object the mode saw on that storage (the
+result itself or a view of it) is garbage-collected, each tracked with a
+``weakref.finalize``.  Operands passed in are not counted, nor are the
+tensors DTensor makes inside one op's dispatch.  A tensor that autograd
+saves for the backward stays alive through the subclass's Python object
+(a DTensor or fake tensor), so saved activations count until the
+backward frees them.
+
 Two things the dispatcher never sees:
 
   * the hand-written kernels launch through ``ctypes``: while a
@@ -50,15 +77,17 @@ Two things the dispatcher never sees:
 from __future__ import annotations
 
 import contextlib
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_flatten, tree_map
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels.build import CudaKernel
+from repro_torch.sharding.api import is_dtensor
 
 # the reference's elementwise ops of one flop per result element
 # (``hlo.py:54``), by their aten names
@@ -131,6 +160,7 @@ class StepCosts:
     per_collective: Dict[str, float] = field(default_factory=dict)
     collective_count: int = 0
     host_transfers: int = 0
+    peak_live_bytes: int = 0
     ops: List[OpCost] = field(default_factory=list)
 
     def add(self, op: OpCost) -> None:
@@ -186,8 +216,38 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _local(t):
+    """A DTensor's local shard (rank 0's); anything else as it is."""
+    return t._local_tensor if is_dtensor(t) else t
+
+
 def _tensors(tree) -> List[torch.Tensor]:
-    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+    return [_local(x) for x in tree_flatten(tree)[0]
+            if isinstance(x, torch.Tensor)]
+
+
+def _storage_key(t: torch.Tensor):
+    """The identity of ``t``'s storage (``id(t)`` for a tensor without
+    one)."""
+    try:
+        return t.untyped_storage()._cdata
+    except (RuntimeError, NotImplementedError, AttributeError):
+        return ("id", id(t))
+
+
+def _local_share(out) -> float:
+    """The share of a DTensor result's global work that one device does:
+    its local elements over the global ones, over the size of every mesh
+    axis on which it is ``Partial``; 1 for a plain result."""
+    outs = [x for x in tree_flatten(out)[0] if isinstance(x, torch.Tensor)]
+    if not outs or not is_dtensor(outs[0]):
+        return 1.0
+    t = outs[0]
+    share = t._local_tensor.numel() / max(t.numel(), 1)
+    for i, pl in enumerate(t.placements):
+        if pl.is_partial():
+            share /= t.device_mesh.size(i)
+    return share
 
 
 def is_host_copy(name: str, args: Tuple, kwargs: Dict,
@@ -211,13 +271,17 @@ def _matmul_flops(func, args, kwargs, out) -> Optional[float]:
     formula = flop_registry.get(func._overloadpacket)
     if formula is None:
         return None
-    return float(formula(*args, **kwargs, out_val=out))
+    return float(formula(*args, **kwargs, out_val=out)) * _local_share(out)
 
 
 def op_cost(func, args: Tuple, kwargs: Dict, out: Any) -> OpCost:
     """The cost of one dispatched op under the rules of the module
     docstring."""
     name = func._overloadpacket.__name__
+    flops = _matmul_flops(func, args, kwargs, out)
+    if any(is_dtensor(x) for x in tree_flatten((args, kwargs, out))[0]):
+        args, kwargs, out = (tree_map(_local, t) for t in (args, kwargs,
+                                                             out))
     outs = _tensors(out)
     out_elems = max((t.numel() for t in outs), default=0)
     if name == "_local_scalar_dense" or is_host_copy(name, args, kwargs,
@@ -255,12 +319,13 @@ def op_cost(func, args: Tuple, kwargs: Dict, out: Any) -> OpCost:
         else:
             read += ts
     w_ids = {id(t) for t in written}
-    w_ptrs = {(t.data_ptr(), t.numel()) for t in written if t.numel()}
+    w_views = {(_storage_key(t), t.storage_offset(), t.numel())
+               for t in written if t.numel()}
     fresh = [t for t in outs if id(t) not in w_ids
-             and (t.data_ptr(), t.numel()) not in w_ptrs]
+             and (_storage_key(t), t.storage_offset(), t.numel())
+             not in w_views]
     nbytes = (sum(_nbytes(t) for t in read) + sum(_nbytes(t) for t in written)
               + sum(_nbytes(t) for t in fresh))
-    flops = _matmul_flops(func, args, kwargs, out)
     if flops is not None:
         return OpCost(name, "matmul", flops, float(nbytes), out_elems)
     if base in EWISE_1FLOP:
@@ -276,20 +341,75 @@ def op_cost(func, args: Tuple, kwargs: Dict, out: Any) -> OpCost:
 _ACTIVE: List["CostMode"] = []
 
 
+class _RedistributeCollectives(TorchDispatchMode):
+    """Active inside one DTensor ``redistribute_local_tensor`` call: hands
+    each c10d collective it dispatches to ``sink`` and lets every op
+    through."""
+
+    def __init__(self, sink: Callable):
+        super().__init__()
+        self.sink = sink
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func._overloadpacket.__name__.rstrip("_") in COLLECTIVES:
+            self.sink(op_cost(func, args, kwargs, out))
+        return out
+
+
+_REDISTRIBUTE: Dict[str, Any] = {}
+
+
+def _observe_redistributions() -> None:
+    """Wrap DTensor's ``redistribute_local_tensor`` (once, in every module
+    of ``torch.distributed.tensor`` that holds it) so that, while a mode
+    counts, the collectives it issues are counted into the innermost
+    active mode (:class:`_RedistributeCollectives`).  A no-op until
+    DTensor has been imported."""
+    import sys
+    red = sys.modules.get("torch.distributed.tensor._redistribute")
+    if red is None or _REDISTRIBUTE:
+        return
+    orig = red.redistribute_local_tensor
+
+    def wrapped(*args, **kwargs):
+        if not analyzing():
+            return orig(*args, **kwargs)
+        mode = _ACTIVE[-1]
+        mode._redistributing += 1
+        try:
+            with _RedistributeCollectives(mode.costs.add):
+                return orig(*args, **kwargs)
+        finally:
+            mode._redistributing -= 1
+    _REDISTRIBUTE["orig"] = orig
+    for name, mod in list(sys.modules.items()):
+        if (name.startswith("torch.distributed.tensor") and mod is not None
+                and getattr(mod, "redistribute_local_tensor", None) is orig):
+            mod.redistribute_local_tensor = wrapped
+
+
 class CostMode(TorchDispatchMode):
     """Counts every op dispatched while it is active into ``costs``; the
     kernels' launches go to the innermost active mode (:func:`_observe`).
     ``paused()`` lets ops and launches through uncounted (an auditor's
-    designed fetch points)."""
+    designed fetch points).  ``track_memory`` keeps the peak of the live
+    bytes the step allocates (module docstring)."""
 
-    def __init__(self):
+    def __init__(self, track_memory: bool = False):
         super().__init__()
         self.costs = StepCosts()
         self._paused = 0
+        self._redistributing = 0
+        self._track = track_memory
+        self._live: Dict[Any, List[int]] = {}     # storage -> [bytes, refs]
+        self._live_bytes = 0
 
     def __enter__(self):
         _ACTIVE.append(self)
         CudaKernel.observer = _observe
+        _observe_redistributions()
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -309,9 +429,66 @@ class CostMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not self._paused:
+        if not self._paused and not self._redistributing:
             self.costs.add(op_cost(func, args, kwargs, out))
+            if self._track:
+                self._track_live(args, kwargs, out)
         return out
+
+    def _track_live(self, args, kwargs, out) -> None:
+        ins = {_storage_key(t) for t in _tensors((args, kwargs))}
+        for t in _tensors(out):
+            key = _storage_key(t)
+            entry = self._live.get(key)
+            if entry is None:
+                if key in ins:          # an operand's storage: not ours
+                    continue
+                try:
+                    nbytes = t.untyped_storage().nbytes()
+                except (RuntimeError, NotImplementedError):
+                    nbytes = _nbytes(t)
+                entry = self._live[key] = [nbytes, 0]
+                self._live_bytes += nbytes
+                self.costs.peak_live_bytes = max(self.costs.peak_live_bytes,
+                                                 self._live_bytes)
+            entry[1] += 1
+            weakref.finalize(t, self._release, key)
+
+    def _release(self, key) -> None:
+        entry = self._live.get(key)
+        if entry is None:
+            return
+        entry[1] -= 1
+        if entry[1] <= 0:
+            self._live_bytes -= entry[0]
+            del self._live[key]
+
+
+def count_collective(name: str, nbytes: float) -> None:
+    """Count a collective that the caller accounts for without dispatching
+    it (``name`` a c10d op name of ``COLLECTIVES``, ``nbytes`` its result
+    bytes per device) into the innermost counting mode, if any."""
+    if analyzing():
+        _ACTIVE[-1].costs.add(OpCost(name, "collective", 0.0, float(nbytes)))
+
+
+@contextlib.contextmanager
+def trip_count(n: int) -> Iterator[None]:
+    """Count what runs inside ``n`` times: one trip of a loop body is
+    traced and its ops are added ``n - 1`` more times on exit, the
+    counterpart of the reference analyzer's ``known_trip_count``
+    multiplier on a while loop's body.  The live-bytes peak stays the one
+    trip's."""
+    if not analyzing():
+        yield
+        return
+    costs = _ACTIVE[-1].costs
+    start = len(costs.ops)
+    yield
+    body = costs.ops[start:]
+    for _ in range(n - 1):
+        for op in body:
+            costs.add(op)
 
 
 def analyzing() -> bool:
@@ -346,9 +523,10 @@ def _observe(kernel: CudaKernel, args: tuple) -> None:
     mode.costs.add(OpCost(kernel.name, "kernel", float(flops), float(nbytes)))
 
 
-def analyze_step(fn: Callable, *args, **kw) -> StepCosts:
+def analyze_step(fn: Callable, *args, track_memory: bool = False,
+                 **kw) -> StepCosts:
     """The costs of one eager call ``fn(*args, **kw)`` (see the module
     docstring)."""
-    with CostMode() as mode:
+    with CostMode(track_memory) as mode:
         fn(*args, **kw)
     return mode.costs

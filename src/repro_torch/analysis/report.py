@@ -1,4 +1,4 @@
-"""Roofline tables from the port's step records (port of
+"""Dry-run and roofline tables from the port's step records (port of
 ``repro/analysis/report.py``).
 
     PYTHONPATH=src python -m repro_torch.analysis.report <dir of *.json>
@@ -12,8 +12,9 @@ step measured on the card also holds ``measured``: ``step_ms`` (the
 graphed step) and ``device`` (the card's name and power limit as
 nvidia-smi prints them); the table then adds the analyzer's flops and
 bytes, the step time and the model FLOPs' share of the card's peak over
-that time.  The reference's ``dryrun_table`` reads mesh dry-runs, which
-wait for the port's dry-run (ROADMAP A.2).
+that time.  A dry-run record (``launch.dryrun``) also holds
+``multi_pod``, ``memory`` (per-device argument, output, temp and alias
+bytes) and ``replicated_ops``; :func:`dryrun_table` reads those.
 """
 from __future__ import annotations
 
@@ -34,8 +35,39 @@ def load_records(d: str) -> List[Dict]:
     return out
 
 
+def _fmt_bytes(b: float) -> str:
+    if b >= 1e12:
+        return f"{b / 1e12:.2f}TB"
+    if b >= 1e9:
+        return f"{b / 1e9:.2f}GB"
+    return f"{b / 1e6:.1f}MB"
+
+
 def _fmt_s(x: float) -> str:
     return f"{x:.2e}"
+
+
+def dryrun_table(recs: List[Dict]) -> str:
+    """The reference's dry-run table, per device, from ``step_cost``."""
+    lines = ["| arch | shape | mesh | swan | status | per-dev args | per-dev temps | coll bytes/dev | collectives |",
+             "|---|---|---|---|---|---|---|---|---|"]
+    for r in recs:
+        mesh = "2x16x16" if r.get("multi_pod") else "16x16"
+        sw = "on" if r["swan"] else "—"
+        if r["status"] != "ok":
+            reason = r.get("reason", r.get("error", ""))[:60]
+            lines.append(f"| {r['arch']} | {r['shape']} | {mesh} | {sw} | "
+                         f"{r['status']}: {reason} | | | | |")
+            continue
+        m = r["memory"]
+        h = r["step_cost"]
+        per = ", ".join(f"{k}:{_fmt_bytes(v)}"
+                        for k, v in sorted(h["per_collective"].items()))
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {mesh} | {sw} | ok | "
+            f"{_fmt_bytes(m['argument_bytes'])} | {_fmt_bytes(m['temp_bytes'])} | "
+            f"{_fmt_bytes(h['collective_bytes'])} | {per} |")
+    return "\n".join(lines)
 
 
 def measured_share(rec: Dict) -> float:
@@ -104,8 +136,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     recs = load_records(argv[0])
-    print("## Step-record summary\n")
+    print("## Dry-run summary\n")
     print(summary_stats(recs))
+    dry = [r for r in recs if "memory" in r or r["status"] != "ok"]
+    if dry:
+        print("\n## Dry-run table\n")
+        print(dryrun_table(dry))
     print("\n## Roofline table (per-device terms, NVIDIA H100 SXM)\n")
     print(roofline_table(recs))
     return 0

@@ -20,7 +20,8 @@ from repro_torch.configs import (deepseek_moe_16b, internvl2_1b,
 from repro_torch.configs.base import (SHAPES, MambaConfig,  # noqa: F401
                                       ModelConfig, MoEConfig,
                                       OptimizerConfig, RWKVConfig,
-                                      ShapeConfig, SwanConfig, TrainConfig)
+                                      ShapeConfig, SwanConfig, TrainConfig,
+                                      shape_applicable)
 
 # the reference registry's order
 _ARCHS = {"deepseek-moe-16b": deepseek_moe_16b,

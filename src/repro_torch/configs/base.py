@@ -274,6 +274,16 @@ SHAPES = {
 }
 
 
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell is runnable; returns (ok, reason)."""
+    if shape.name == "long_500k":
+        sub_quadratic = model.rwkv is not None or model.mamba is not None
+        if not sub_quadratic:
+            return False, ("pure full-attention arch: long_500k needs sub-quadratic "
+                           "attention (see DESIGN.md §Arch-applicability)")
+    return True, ""
+
+
 # ---------------------------------------------------------------------------
 # Train configs
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.winnow import winnow_vector
 from repro_torch.models.common import torch_dtype
+from repro_torch.sharding.api import shard
 
 Params = Dict[str, Any]
 
@@ -216,8 +217,11 @@ def swan_cache_insert_prefill_(cache: Params, swan, k_hat: torch.Tensor,
     S = k_hat.shape[1]
     b = swan.buffer
     n_sp = max(S - b, 0) if b else S
-    kt = k_hat.transpose(1, 2)     # [B, Kv, S, dh]
-    vt = v_hat.transpose(1, 2)
+    # pinned to the sparse cache's layout (sequence over 'model'): the
+    # per-token top-k then runs shard-locally and the packed writes stay
+    # local (the reference's hook)
+    kt = shard(k_hat.transpose(1, 2), "kv_cache")     # [B, Kv, S, dh]
+    vt = shard(v_hat.transpose(1, 2), "kv_cache")
     if n_sp:
         _write_sparse_rows_(cache["k"], winnow_vector(kt[:, :, :n_sp], swan,
                                                       "k", k_act),

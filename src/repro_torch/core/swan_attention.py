@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core.hybrid_cache import _bits, per_seq_pos, sparse_len
 from repro_torch.core.winnow import unpack_dense
-from repro_torch.sharding.api import one_device
+from repro_torch.sharding.api import one_device, shard
 
 Params = Dict[str, Any]
 
@@ -100,7 +100,10 @@ def _sparse_stats_sharded(qf: torch.Tensor, cache: Params, swan,
     sequence slice at its offset, then the O(dh) stats merged (the
     reference's one pmax + two psums).  On a mesh laid over one device the
     shards' stats stack on a shard axis and the merge is a max and two
-    sums over it; the batch needs no split there."""
+    sums over it; the batch needs no split there.  A mesh that carries a
+    ``DeviceMesh`` (the dry-run's) runs :func:`_sparse_stats_dtensor`."""
+    if getattr(mesh, "device_mesh", None) is not None:
+        return _sparse_stats_dtensor(qf, cache, swan, sp_len, mesh, seq_axis)
     one_device(mesh)
     S = cache["k"]["vals"].shape[2]
     n_shard = mesh.shape[seq_axis]
@@ -118,6 +121,55 @@ def _sparse_stats_sharded(qf: torch.Tensor, cache: Params, swan,
     return m_g, (l * corr).sum(0), (o * corr[..., None]).sum(0)
 
 
+def _sparse_stats_dtensor(qf: torch.Tensor, cache: Params, swan,
+                          sp_len: torch.Tensor, mesh, seq_axis: str
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split-S over a ``DeviceMesh`` (``local_map``): the batch stays split
+    over the other (data-parallel) axes where it divides, each device
+    computes its sequence slice's stats at its offset, and an
+    ``all_reduce`` max and two ``all_reduce`` sums over ``seq_axis`` merge
+    them: the reference's ``shard_map`` with one pmax and two psums."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = mesh.device_mesh
+    names = tuple(mesh.axis_names)
+    seq_dim = names.index(seq_axis)
+    B, S = qf.shape[0], cache["k"]["vals"].shape[2]
+    s_local = S // mesh.shape[seq_axis]
+    dp = [a for a in names if a != seq_axis]
+    n_dp = 1
+    for a in dp:
+        n_dp *= mesh.shape[a]
+    split_b = bool(dp) and B % n_dp == 0 and B >= n_dp
+
+    def pl(seq_dim_of_t=None):
+        return tuple(Shard(seq_dim_of_t) if a == seq_axis and seq_dim_of_t
+                     is not None else Shard(0) if a != seq_axis and split_b
+                     else Replicate() for a in names)
+    k_names = sorted(cache["k"])
+    v_names = sorted(cache["v"])
+    n_k = len(k_names)
+
+    def local_fn(q, sp, *sides):
+        k_side = dict(zip(k_names, sides[:n_k]))
+        v_side = dict(zip(v_names, sides[n_k:]))
+        off = dm.get_local_rank(seq_dim) * s_local
+        m, l, o = _sparse_stats(q, k_side, v_side, swan, sp, off)
+        group = (dm, seq_dim)
+        m_g = funcol.all_reduce(m, "max", group)
+        corr = torch.exp(m - m_g)
+        return (m_g, funcol.all_reduce(l * corr, "sum", group),
+                funcol.all_reduce(o * corr[..., None], "sum", group))
+
+    sides = [cache["k"][n] for n in k_names] + [cache["v"][n] for n in v_names]
+    return local_map(local_fn, (pl(), pl(), pl()),
+                     (pl(), pl()) + tuple(pl(2) for _ in sides),
+                     device_mesh=dm, redistribute_inputs=True
+                     )(qf, sp_len, *sides)
+
+
 def swan_decode_attention(q_hat: torch.Tensor, cache: Params, swan,
                           pos: torch.Tensor, mesh=None,
                           seq_axis: Optional[str] = None) -> torch.Tensor:
@@ -127,7 +179,10 @@ def swan_decode_attention(q_hat: torch.Tensor, cache: Params, swan,
     the per-sequence decode position [B].  With ``mesh``/``seq_axis`` (an
     axis that splits the sequence evenly) the sparse part runs split-S."""
     dh = q_hat.shape[-1]
-    qf = q_hat.float()
+    # every device of a split-S read needs all of its sequences' heads:
+    # the reference's shard_map in_spec for q (an activation hook, the
+    # identity off a DTensor mesh)
+    qf = shard(q_hat.float(), "decode_q")
     sp = sparse_len(swan, pos)                         # [B]
     scale = 1.0 / math.sqrt(dh)
     S = cache["k"]["vals"].shape[2]

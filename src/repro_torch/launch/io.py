@@ -1,4 +1,9 @@
-"""Concrete batches (port of ``repro.launch.io.make_batch``).
+"""Model inputs (port of ``repro.launch.io``): the abstract inputs of a
+(arch x shape) cell for the dry-run, and concrete batches.
+
+``train_input_specs`` and ``decode_input_specs`` return tensors on the
+``meta`` device in the reference's dtypes (int32 tokens): shapes without
+memory, the counterpart of its ``ShapeDtypeStruct`` stand-ins.
 
 Everything comes from ``numpy.random.default_rng(seed)`` in the
 reference's order -- the tokens, then a VLM's patch embeddings, then an
@@ -16,6 +21,26 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import torch_dtype
+
+
+def train_input_specs(cfg, batch: int, seq: int) -> Dict[str, Any]:
+    """``{"tokens": [batch, seq] int32}``, plus ``"prefix_embeds"`` for a
+    VLM and ``"frames"`` for an encoder-decoder, in ``cfg.dtype``."""
+    specs = {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                   device="meta")}
+    dt = torch_dtype(cfg.dtype)
+    if cfg.family == "vlm":
+        specs["prefix_embeds"] = torch.empty(
+            (batch, cfg.n_prefix_tokens, cfg.d_model), dtype=dt,
+            device="meta")
+    if cfg.is_encoder_decoder:
+        specs["frames"] = torch.empty((batch, cfg.encoder_seq, cfg.d_model),
+                                      dtype=dt, device="meta")
+    return specs
+
+
+def decode_input_specs(cfg, batch: int) -> Dict[str, Any]:
+    return {"token": torch.empty((batch,), dtype=torch.int32, device="meta")}
 
 
 def make_batch(cfg, batch: int, seq: int, seed: int = 0,

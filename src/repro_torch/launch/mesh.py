@@ -12,6 +12,11 @@ of the reference's ``--xla_force_host_platform_device_count``, named by
 the caller and never a fallback.  ``make_production_mesh`` keeps the
 reference's production shapes over ``meta`` placeholders (for shape
 arithmetic; the serve engine refuses a ``meta`` mesh).
+``make_dryrun_mesh`` lays the same shapes over a ``torch.distributed``
+``DeviceMesh`` whose process group is torch's ``fake`` backend, one rank
+per device: DTensor propagates placements over it and every collective
+is a no-op, the counterpart of the reference dry-run's 512 placeholder
+host devices (``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import torch
 class Mesh:
     """Named axes over an object array of ``torch.device``."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 device_mesh=None):
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh of shape {devices.shape} needs "
@@ -35,6 +41,9 @@ class Mesh:
         self.devices = devices
         self.axis_names = axis_names
         self.shape = OrderedDict(zip(axis_names, devices.shape))
+        # a torch.distributed DeviceMesh of the same shape and names, for
+        # DTensor placements (make_dryrun_mesh); None otherwise
+        self.device_mesh = device_mesh
 
     @property
     def size(self) -> int:
@@ -81,3 +90,40 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, ["meta"] * int(np.prod(shape)))
+
+
+def make_dryrun_mesh(*, multi_pod: bool = False, shape=None) -> Mesh:
+    """The production mesh (``make_production_mesh``'s shapes; ``shape``
+    overrides them, e.g. ``(2, 4)``, with the same axis names) over a
+    ``DeviceMesh`` on the ``fake`` process group, this process rank 0 of
+    one rank per device: DTensor placements, local shapes and
+    collectives' sizes are those of rank 0, and no collective moves data.
+
+    Starts the fake group (or restarts it at another world size), so call
+    it only in a process of its own (``python -m
+    repro_torch.launch.dryrun``, or a test's subprocess): the default
+    process group it leaves would be seen by everything later in that
+    process.  Refuses to run when a real process group is initialised."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    shape = tuple(int(s) for s in shape)
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    n = int(np.prod(shape))
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()!r} process group is initialised: the "
+                "dry-run's fake group must run in a process of its own")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), world_size=n,
+                                rank=0)
+    dm = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    return Mesh(np.array([torch.device("meta")] * n, dtype=object
+                         ).reshape(shape), axes, device_mesh=dm)

@@ -33,6 +33,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, embed_init_, init_norm,
                                        param_generator, torch_dtype)
 from repro_torch.models.mlp import mlp_forward
+from repro_torch.sharding.api import shard
 
 Params = Dict[str, Any]
 
@@ -87,7 +88,7 @@ def encode(p: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
     learned positions, then pre-norm layers of non-causal attention."""
     F = frames.shape[1]
     x = frames.to(torch_dtype(cfg.dtype))
-    x = x + p["enc"]["pos_embed"][None, :F].to(x.dtype)
+    x = shard(x + p["enc"]["pos_embed"][None, :F].to(x.dtype), "enc_out")
     body = (tfm._remat(_enc_layer, cfg) if torch.is_grad_enabled()
             else _enc_layer)
     for i in range(cfg.n_encoder_layers):
@@ -131,12 +132,12 @@ def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor,
     each layer is recomputed in the backward."""
     enc_out = encode(p, cfg, frames)
     positions = _positions(tokens)
-    x = _dec_embed(p, cfg, tokens, positions)
+    x = shard(_dec_embed(p, cfg, tokens, positions), "residual")
     body = (tfm._remat(_dec_layer, cfg) if torch.is_grad_enabled()
             else _dec_layer)
     for i in range(cfg.n_layers):
         x = body(tfm.layer_params(p["dec"], i), cfg, x, positions, enc_out)
-    return (_head(p, cfg, x),
+    return (shard(_head(p, cfg, x), "logits"),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

@@ -35,6 +35,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, embed_init_, init_norm,
                                        param_generator, torch_dtype)
 from repro_torch.models.mlp import mlp_forward
+from repro_torch.sharding.api import shard
 
 Params = Dict[str, Any]
 
@@ -102,7 +103,7 @@ def _sublayer(lp: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
         h = attn.attn_forward(lp["attn"], cfg, h, positions)
     else:
         h = mb.mamba_forward(lp["mamba"], cfg, h)
-    x = x + h
+    x = shard(x + h, "residual")
     h = apply_norm(lp["ln2"], cfg, x)
     if "experts" in lp:
         h, a = moe_mod.moe_forward(lp["experts"], cfg, h)
@@ -110,7 +111,7 @@ def _sublayer(lp: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     else:
         h = mlp_forward(lp["mlp"], cfg, h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + h, aux
+    return shard(x + h, "residual"), aux
 
 
 def _group_forward(gp: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
@@ -128,13 +129,14 @@ def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor
     each group is recomputed in the backward (the reference checkpoints its
     group body)."""
     x, positions = _embed(p, cfg, tokens)
+    x = shard(x, "residual")
     body = (tfm._remat(_group_forward, cfg) if torch.is_grad_enabled()
             else _group_forward)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(n_groups(cfg)):
         x, a = body(group_params(p, g), cfg, x, positions)
         aux = aux + a
-    return _head(p, cfg, x), aux
+    return shard(_head(p, cfg, x), "logits"), aux
 
 
 # ---------------------------------------------------------------------------

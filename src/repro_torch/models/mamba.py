@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init_, torch_dtype, write_live_
+from repro_torch.sharding.api import shard
 
 Params = Dict[str, Any]
 
@@ -116,10 +117,16 @@ def _causal_conv(p: Params, cfg, u: torch.Tensor):
     return F.silu(acc + p["conv_b"]), upad
 
 
-def _block_channels(B: int, rows: int, Q: int, N: int, D: int) -> int:
-    """Channels per block so that a [B, rows, Q, Dc, N] f32 tile stays
-    under ``INTRA_BLOCK_BYTES``."""
-    return max(1, min(D, INTRA_BLOCK_BYTES // (B * rows * Q * N * 4)))
+def _block_channels(dt: torch.Tensor, rows: int, N: int) -> int:
+    """Channels per block so that a [B, rows, Q, Dc, N] f32 tile of
+    ``dt`` [B, Q, D] stays under ``INTRA_BLOCK_BYTES`` on the device that
+    holds it: a DTensor's (the dry-run's) by its local shard, its block
+    then as many global channels (one block when the shard fits)."""
+    _, Q, D = dt.shape
+    loc = getattr(dt, "_local_tensor", dt)
+    Bl, _, Dl = loc.shape
+    per = max(1, min(Dl, INTRA_BLOCK_BYTES // (Bl * rows * Q * N * 4)))
+    return per * (D // max(Dl, 1))
 
 
 def _intra(s_b, A_b, cb, x_b, upper):
@@ -157,13 +164,13 @@ def _chunk_scan(dt, A, Bm, Cm, u, h0):
     kernel ``Σ_n C_t·exp(A (s_t - s_τ))·B_τ`` over τ <= t (``_intra``),
     the carried state's contribution ``exp(A s_t)·C_t·h0``, and the new
     state."""
-    Bsz, Q, D = dt.shape
+    Q, D = dt.shape[1:]
     N = A.shape[1]
     s = torch.cumsum(dt, dim=1)                                  # [B,Q,D]
     x = dt * u                                                   # Δ·u
     upper = ~torch.ones((Q, Q), dtype=torch.bool, device=dt.device).tril()
     cb = Cm[:, :, None, :] * Bm[:, None, :, :]                   # [B,Q,Q,N]
-    Dc = _block_channels(Bsz, min(Q, INTRA_TILE), Q, N, D)
+    Dc = _block_channels(dt, min(Q, INTRA_TILE), N)
     ys, hs = [], []
     for d0 in range(0, D, Dc):
         sl = slice(d0, d0 + Dc)
@@ -189,7 +196,7 @@ def mamba_forward(p: Params, cfg, x: torch.Tensor, chunk: int = CHUNK,
     m = cfg.mamba
     d_in = m.expand * d
     u, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
-    u, upad = _causal_conv(p, cfg, u)
+    u, upad = _causal_conv(p, cfg, shard(u, "mamba_inner"))
     dt, Bm, Cm = _ssm_inputs(p, cfg, u)
     A = -torch.exp(p["a_log"])
     uf = u.float()

@@ -21,6 +21,7 @@ from repro_torch.models import rwkv
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, embed_init_, init_norm,
                                        param_generator, torch_dtype)
+from repro_torch.sharding.api import shard
 
 Params = Dict[str, Any]
 
@@ -48,10 +49,12 @@ def _head(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(lp: Params, cfg, x: torch.Tensor) -> torch.Tensor:
-    x = x + rwkv.time_mix_forward(lp["tm"], cfg,
-                                  apply_norm(lp["ln1"], cfg, x))
-    return x + rwkv.channel_mix_forward(lp["cm"], cfg,
-                                        apply_norm(lp["ln2"], cfg, x))
+    x = shard(x + rwkv.time_mix_forward(lp["tm"], cfg,
+                                        apply_norm(lp["ln1"], cfg, x)),
+              "residual")
+    return shard(x + rwkv.channel_mix_forward(lp["cm"], cfg,
+                                              apply_norm(lp["ln2"], cfg, x)),
+                 "residual")
 
 
 def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor
@@ -59,11 +62,12 @@ def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor
     """tokens [B, S] -> (logits [B, S, V], a zero aux loss).
     Differentiable in ``p``; with ``cfg.remat``, under autograd, each layer
     is recomputed in the backward."""
-    x = p["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    x = shard(p["embed"][tokens.long()].to(torch_dtype(cfg.dtype)),
+              "residual")
     body = tfm._remat(_layer, cfg) if torch.is_grad_enabled() else _layer
     for i in range(cfg.n_layers):
         x = body(tfm.layer_params(p, i), cfg, x)
-    return (_head(p, cfg, x),
+    return (shard(_head(p, cfg, x), "logits"),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -83,7 +87,8 @@ def prefill(p: Params, cfg, tokens: torch.Tensor, state: Params, swan=None,
             ) -> Tuple[torch.Tensor, Params]:
     """Chunked (parallel) prefill: one pass rebuilds every layer's state,
     written in place.  Returns (last-token logits [B, 1, V], state)."""
-    x = p["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    x = shard(p["embed"][tokens.long()].to(torch_dtype(cfg.dtype)),
+              "residual")
     for i in range(cfg.n_layers):
         lp, st = tfm.layer_params(p, i), tfm.layer_cache(state, i)
         xin = apply_norm(lp["ln1"], cfg, x)

@@ -38,7 +38,7 @@ from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
                                        init_norm, param_generator,
                                        torch_dtype)
 from repro_torch.models.mlp import mlp_forward
-from repro_torch.sharding.api import current_rules
+from repro_torch.sharding.api import current_rules, shard
 
 Params = Dict[str, Any]
 
@@ -172,7 +172,7 @@ def _embed(p: Params, cfg, tokens: torch.Tensor,
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if cfg.pos == "learned":
         x = x + learned_positions(p["pos_embed"], positions, x.dtype)
-    return x, positions
+    return shard(x, "residual"), positions
 
 
 def _head(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -202,7 +202,7 @@ def _layer_qkv_forward(lp: Params, cfg, x: torch.Tensor,
     h = apply_norm(lp["ln1"], cfg, x)
     q, k, v = attn.project_qkv(lp["attn"], cfg, h, positions)
     o = attn.causal_attention(q, k, v)
-    x = x + attn.output_proj(lp["attn"], o)
+    x = shard(x + attn.output_proj(lp["attn"], o), "residual")
     h = apply_norm(lp["ln2"], cfg, x)
     if "experts" in lp:
         h, aux = moe_mod.moe_forward(lp["experts"], cfg, h)
@@ -210,7 +210,7 @@ def _layer_qkv_forward(lp: Params, cfg, x: torch.Tensor,
     else:
         h = mlp_forward(lp["mlp"], cfg, h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + h, aux, (q, k, v)
+    return shard(x + h, "residual"), aux, (q, k, v)
 
 
 def _layer_forward(lp: Params, cfg, x: torch.Tensor,
@@ -258,7 +258,7 @@ def lm_forward_aux(p: Params, cfg, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         x, a = body(layer_params(p, i), cfg, x, positions)
         aux = aux + a
-    return _head(p, cfg, x), aux
+    return shard(_head(p, cfg, x), "logits"), aux
 
 
 def lm_forward(p: Params, cfg, tokens: torch.Tensor,
@@ -498,7 +498,8 @@ def lm_prefill(p: Params, cfg, tokens: torch.Tensor, caches: Params,
             q, k, v = attn.project_qkv(lp["attn"], cfg, h, positions)
             attn.dense_cache_insert_(cache_l, k, v, 0)
             h = attn.output_proj(lp["attn"], attn.causal_attention(q, k, v))
-        x = _layer_ffn(lp, cfg, x + h)
+        x = shard(x + h, "residual")
+        x = shard(_layer_ffn(lp, cfg, x), "residual")
     if true_len is None:
         x = x[:, -1:]
     elif isinstance(true_len, torch.Tensor):
@@ -656,6 +657,7 @@ def lm_prefill_chunk_batched(p: Params, cfg, tokens: torch.Tensor,
     positions = lanes["start"][:, None] + torch.arange(S, device=dev)[None]
     if cfg.pos == "learned":
         x = x + learned_positions(p["pos_embed"], positions, x.dtype)
+    x = shard(x, "residual")
     k_layers = _k_per_layer(cfg, swan, projections) if use_swan else None
     k_req = None if k_active is None else lane_vec(k_active)
     for i in range(cfg.n_layers):
@@ -670,7 +672,8 @@ def lm_prefill_chunk_batched(p: Params, cfg, tokens: torch.Tensor,
         else:
             h = _dense_layer_prefill_chunk(lp, cache_l, cfg, h, lanes,
                                            positions, prefix_len=prefix_len)
-        x = _layer_ffn(lp, cfg, x + h)
+        x = shard(x + h, "residual")
+        x = shard(_layer_ffn(lp, cfg, x), "residual")
     last = torch.clamp(lanes["true_len"] - 1, min=0)
     x = x[torch.arange(P, device=dev), last][:, None]      # last REAL token
     return _head(p, cfg, x)[:, 0], caches

@@ -3,15 +3,18 @@
 ``compress_gradients`` applies a quantize/dequantize round (symmetric
 int8, one scale per 4096-wide chunk, round half to even) to the gradients
 before the optimizer; with ``error_feedback`` the previous residuals are
-added first.  ``residuals`` gives each leaf's quantization residual.  The
-reference's ``dp_int8_allreduce`` (int8 on the wire across a data-parallel
-mesh axis) waits for the port's meshes.
+added first.  ``residuals`` gives each leaf's quantization residual.
+``dp_int8_allreduce`` mean-reduces gradients across a data-parallel axis
+of a ``DeviceMesh`` with int8 on the wire: each rank quantises, all-gathers
+the int8 values and the f32 scales, and dequantises and averages locally
+(gloo on the CPU, NCCL on the card, or the dry-run's fake group).
 """
 from __future__ import annotations
 
 from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.tree import tree_map
@@ -65,4 +68,33 @@ def residuals(grads: Tree) -> Tree:
         g32 = g.float()
         q, s = _quantize_leaf(g32)
         return g32 - _dequantize_leaf(q, s, g.shape, torch.float32)
+    return tree_map(one, grads)
+
+
+# ---------------------------------------------------------------------------
+# Explicit int8-on-the-wire DP all-reduce
+# ---------------------------------------------------------------------------
+
+def dp_int8_allreduce(grads: Tree, axis_name: str, mesh) -> Tree:
+    """Mean-reduce gradients across ``mesh``'s ``axis_name`` with int8 on
+    the wire: quantise locally (``_quantize_leaf``), all-gather the int8
+    values and the f32 scales over that axis's process group, dequantise
+    and average locally.  4x less gradient traffic than an f32 all-reduce
+    at the cost of one quantisation round per step.  ``mesh`` is a
+    ``torch.distributed`` ``DeviceMesh``, or a ``launch.mesh.Mesh`` that
+    carries one (``device_mesh``)."""
+    dm = getattr(mesh, "device_mesh", None) or mesh
+    group = dm.get_group(axis_name)
+    n_ranks = dist.get_world_size(group)
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        out = [torch.empty_like(t) for _ in range(n_ranks)]
+        dist.all_gather(out, t.contiguous(), group=group)
+        return torch.stack(out)                      # [P, n_chunks, ...]
+
+    def one(g):
+        q, s = _quantize_leaf(g)
+        deq = gather(q).float() * gather(s)          # [P, n_chunks, CHUNK]
+        mean = deq.mean(dim=0)
+        return mean.reshape(-1)[:g.numel()].reshape(g.shape).to(g.dtype)
     return tree_map(one, grads)

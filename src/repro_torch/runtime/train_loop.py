@@ -6,11 +6,13 @@ straggler watchdog).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.cost import trip_count
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.data.pipeline import SyntheticStream
 from repro_torch.device import DeviceLike, resolve_device
@@ -18,13 +20,15 @@ from repro_torch.models.registry import get_model
 from repro_torch.optim.adamw import adamw_update, init_opt_state
 from repro_torch.runtime.fault_tolerance import PreemptionHandler, StepWatchdog
 from repro_torch.runtime.grad_compress import compress_gradients
+from repro_torch.sharding.api import shard
 from repro_torch.tree import leaves, tree_map, unflatten
 
 Params = Dict[str, Any]
 
 
 def make_train_step(cfg, opt_cfg, grad_accum: int = 1,
-                    grad_compression: str = "none") -> Callable:
+                    grad_compression: str = "none", *,
+                    count_only: bool = False) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics); params and moments are updated in place.
 
@@ -32,6 +36,14 @@ def make_train_step(cfg, opt_cfg, grad_accum: int = 1,
     one after another, each gradient divided by ``grad_accum`` and summed
     in f32 (the reference's ``scan``).  Every metric stays a device
     tensor: the step reads nothing back to the host.
+
+    ``count_only`` is the dry-run's step (``launch.dryrun``, on fake
+    tensors whose values nothing reads): the microbatch loop's body runs
+    once and the cost analyzer counts it ``grad_accum`` times
+    (``analysis.cost.trip_count``, as the reference's analyzer multiplies
+    its ``scan`` body by the trip count), and a parameter the loss does
+    not read (a layer stack cut to 0 layers) gets zero gradients.  A real
+    step keeps autograd strict: such a parameter raises.
     """
     api = get_model(cfg)
 
@@ -40,9 +52,11 @@ def make_train_step(cfg, opt_cfg, grad_accum: int = 1,
         # ends here and is freed by autograd.grad, before the in-place update
         flat = [x.detach().requires_grad_() for x in leaves(params)]
         loss, metrics = api.loss(unflatten(params, flat), cfg, mb)
-        grads = torch.autograd.grad(loss, flat)
+        grads = torch.autograd.grad(loss, flat, allow_unused=count_only)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, flat)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            unflatten(params, list(grads))
+            unflatten(params, grads)
 
     def train_step(params: Params, opt_state: Params, batch: Params):
         if grad_accum == 1:
@@ -54,16 +68,23 @@ def make_train_step(cfg, opt_cfg, grad_accum: int = 1,
                                  f"{grad_accum}")
             micro = {k: v.reshape(grad_accum, b // grad_accum, *v.shape[1:])
                      for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            # laid out as the parameters (a DTensor leaf's accumulator is
+            # one too)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                             params)
             loss = 0.0
-            for i in range(grad_accum):
-                l, _, g = value_and_grad(params,
-                                         {k: v[i] for k, v in micro.items()})
-                for acc, x in zip(leaves(grads), leaves(g)):
-                    acc.add_(x.float() / grad_accum)
-                loss = loss + l / grad_accum
-                del g
+            with (trip_count(grad_accum) if count_only
+                  else contextlib.nullcontext()):
+                for i in range(1 if count_only else grad_accum):
+                    mb = {k: v[i] for k, v in micro.items()}
+                    # split over the data axes as the batch is (an
+                    # activation hook: the identity without rules)
+                    mb["tokens"] = shard(mb["tokens"], "tokens")
+                    l, _, g = value_and_grad(params, mb)
+                    for acc, x in zip(leaves(grads), leaves(g)):
+                        acc.add_(x.float() / grad_accum)
+                    loss = loss + l / grad_accum
+                    del g
             zero = torch.zeros((), device=loss.device)
             metrics = {"nll": loss, "aux": zero, "z": zero}
         if grad_compression == "int8":

@@ -1,6 +1,6 @@
-"""Partition specs, the activation-rules context and the serve engine's
-data-parallel layout on one device (port of ``repro.sharding.api``, less
-``shard``: no model code of the port calls an activation hook).
+"""Partition specs, the activation-rules context and its hooks, and the
+serve engine's data-parallel layout on one device (port of
+``repro.sharding.api``).
 
 A :class:`PartitionSpec` is a tuple with one entry per dim: an axis name,
 a tuple of axis names, or ``None`` (unsharded), kept in jax's canonical
@@ -8,6 +8,15 @@ form (a one-name tuple is the name), so ``tuple(spec)`` equals
 ``tuple(jax.sharding.PartitionSpec(...))`` of the same entries.  A mesh is
 anything with ``.shape`` (axis -> size) and ``.axis_names``
 (``repro_torch.launch.mesh``).
+
+Model code is mesh-agnostic: it calls :func:`shard` ``(x, kind)`` at the
+reference's points, and the caller installs a :class:`ShardingRules`
+(``use_rules``).  The hook is the identity unless ``x`` is a DTensor and
+the rules' mesh carries a ``torch.distributed`` ``DeviceMesh``
+(``launch.mesh.make_dryrun_mesh``): then it redistributes ``x`` to the
+kind's placements, the counterpart of ``with_sharding_constraint``.  The
+served paths hold plain tensors, so with or without rules they run the
+same ops (a CUDA graph captures nothing of the hook).
 
 :func:`shard_map_compat` is the counterpart of the reference's
 ``shard_map`` wrapper for a mesh laid over ONE device
@@ -49,6 +58,50 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+def to_placements(spec: PartitionSpec, mesh) -> list:
+    """DTensor placements of ``spec`` over ``mesh``, one per mesh axis in
+    ``mesh.axis_names`` order: ``Shard(d)`` on each axis that names dim
+    ``d``, ``Replicate()`` on the others.  A tuple entry ``("pod",
+    "data")`` shards its dim over both axes; DTensor splits a dim over
+    several mesh axes in mesh order, pod-major as jax does (the entry
+    must list its axes in mesh order).  A spec shorter than the tensor
+    leaves the trailing dims whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.axis_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(tuple(spec)):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} lists its axes out of the "
+                             f"mesh's order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {names[i]!r} shards two dims "
+                                 f"in {spec}")
+            out[i] = Shard(d)
+    return out
+
+
+def local_shape(shape, spec: PartitionSpec, mesh) -> tuple:
+    """The per-device shape of a tensor of ``shape`` laid out by ``spec``
+    over ``mesh`` (every sharded dim divides: ``sanitize_tree`` keeps only
+    such axes)."""
+    out = list(shape)
+    for d, entry in enumerate(tuple(spec)):
+        if entry is None:
+            continue
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            n = mesh.shape[a]
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                 f"divide over {a!r} ({n})")
+            out[d] //= n
+    return tuple(out)
+
+
 class ShardingRules:
     """Activation kinds -> specs over one mesh."""
 
@@ -72,6 +125,26 @@ def use_rules(rules: Optional[ShardingRules]) -> Iterator[None]:
         yield
     finally:
         _state.rules = prev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (checked without importing
+    ``torch.distributed.tensor``)."""
+    return hasattr(x, "_local_tensor") and hasattr(x, "placements")
+
+
+def shard(x, kind: str):
+    """Redistribute ``x`` to the installed rules' placements for ``kind``
+    (a DTensor under rules whose mesh carries a ``device_mesh``); the
+    identity otherwise, so plain tensors pass untouched."""
+    rules = current_rules()
+    if rules is None or not is_dtensor(x):
+        return x
+    spec = rules.spec(kind)
+    dmesh = getattr(rules.mesh, "device_mesh", None)
+    if spec is None or dmesh is None:
+        return x
+    return x.redistribute(dmesh, to_placements(spec, rules.mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ twin ``swan_prune_plain``:
   x̂, and selects the twin's idx on every vector clear of near-ties;
 * the budget: ``precheck`` reports the shared memory that ``smem_bytes``
   (the CUDA source's layout) gives, within a Hopper block's."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -75,8 +77,14 @@ def _bitonic(key):
 
 def _emulate(xh, k, dtype):
     """Top k of [..., dh] x̂ as the kernel packs them: (vals, idx int8)."""
-    lead = xh.shape[:-1]
-    key = _bitonic(_keys(xh.reshape(-1, xh.shape[-1])))[:, :k]
+    return _pack(_bitonic(_keys(xh.reshape(-1, xh.shape[-1]))),
+                 xh.shape[:-1], k, dtype)
+
+
+def _pack(key, lead, k, dtype):
+    """The first k of the network's sorted keys [N, D] as the kernel packs
+    them: (vals [*lead, k] in ``dtype``, idx int8)."""
+    key = key[:, :k]
     bits = ((key >> 8) & 0x7FFFFFFF) | ((key & 1) << 31)
     bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)   # as int32
     vals = bits.to(torch.int32).view(torch.float32)
@@ -119,6 +127,17 @@ def _bits(v):
     return v.view(torch.int16 if v.dtype == torch.bfloat16 else torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _network(kind, dh, dtype, rotated=True):
+    """The network's sorted keys [N, D] of one input's x̂ (``rotated``) or
+    of x itself: every k of that input reads them (the sort does not
+    depend on k), so each input goes through the network once per
+    module."""
+    x, p = _inputs(kind, dh, dtype)
+    xh = _x_hat(x, p) if rotated else x.float()
+    return _bitonic(_keys(xh.reshape(-1, dh)))
+
+
 @pytest.mark.parametrize("kind", ["normal", "ties"])
 @pytest.mark.parametrize("dh", [16, 32, 80, 128])
 @pytest.mark.parametrize("kq", ["1", "7", "dh/2", "dh"])
@@ -127,7 +146,8 @@ def test_sorting_network_equals_the_twin(kind, dh, kq):
     for dtype in (torch.bfloat16, torch.float32):
         x, p = _inputs(kind, dh, dtype)
         want_v, want_i = spk.swan_prune_plain(x, p, k)
-        got_v, got_i = _emulate(_x_hat(x, p), k, dtype)
+        got_v, got_i = _pack(_network(kind, dh, dtype), x.shape[:-1], k,
+                             dtype)
         assert torch.equal(got_i, want_i)
         assert torch.equal(_bits(got_v), _bits(want_v))
         if kind == "ties":
@@ -139,7 +159,8 @@ def test_sorting_network_equals_the_twin(kind, dh, kq):
             mag = xh.abs()
             assert (mag[..., :, None] == mag[..., None, :]).sum() > 2 * xh.numel()
             want_i = torch.sort(-mag, dim=-1, stable=True).indices[..., :k]
-            got_v, got_i = _emulate(xh, k, dtype)
+            got_v, got_i = _pack(_network(kind, dh, dtype, rotated=False),
+                                 x.shape[:-1], k, dtype)
             assert torch.equal(got_i, want_i.to(torch.int8))
             assert torch.equal(_bits(got_v),
                                _bits(torch.gather(xh, -1, want_i).to(dtype)))
